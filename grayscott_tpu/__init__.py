@@ -1,6 +1,6 @@
-"""grayscott-tpu: a TPU-native Gray-Scott reaction-diffusion framework.
+"""A Gray-Scott reaction-diffusion framework in JAX, run on NVIDIA GPUs.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the Rust
+Built from scratch in JAX/XLA with the capabilities of the Rust
 reference ``HadrienG2/grayscott`` (see SURVEY.md for the full structural
 analysis and the design mapping).
 """

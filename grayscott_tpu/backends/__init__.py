@@ -5,12 +5,10 @@ reference picks the best enabled backend at compile time via a cfg_if
 priority chain; here the choice is at runtime via :func:`best_backend`
 (overridable with the ``GRAYSCOTT_BACKEND`` env var or ``--backend``).
 
-Priority (best first), gated on platform:
-  TPU : pallas > fused > regular > naive
-  CPU : fused > regular > naive   (pallas runs in interpreter mode on CPU —
-        available explicitly, never auto-selected)
-The multi-chip `sharded` backend is auto-selected when more than one device
-is visible.
+Priority (best first): `sharded` when more than one device is visible and
+the domain is worth splitting, else `fused` (one XLA executable per batch
+of steps) on any platform; `regular`, `naive` and `conv` are explicit
+choices.
 """
 
 from __future__ import annotations
@@ -23,6 +21,7 @@ from .naive import NaiveSimulation
 from .regular import RegularSimulation
 from .fused import FusedSimulation
 from .conv import ConvSimulation
+from .sharded import ShardedSimulation
 
 BACKENDS: Dict[str, Type[Simulation]] = {}
 
@@ -35,22 +34,7 @@ register(NaiveSimulation)
 register(RegularSimulation)
 register(FusedSimulation)
 register(ConvSimulation)
-
-# Pallas / sharded backends import jax.experimental; register lazily but
-# eagerly enough to appear in --help.
-try:  # pragma: no cover - import guard
-    from .pallas import PallasSimulation
-
-    register(PallasSimulation)
-except ImportError:  # pragma: no cover
-    PallasSimulation = None
-
-try:  # pragma: no cover - import guard
-    from .sharded import ShardedSimulation
-
-    register(ShardedSimulation)
-except ImportError:  # pragma: no cover
-    ShardedSimulation = None
+register(ShardedSimulation)
 
 
 def get_backend(name: str) -> Type[Simulation]:
@@ -67,31 +51,29 @@ def sharded_worthwhile(shape, n_devices: int) -> bool:
     (compute/selector/src/lib.rs:4-59) — an 8-way mesh on a 64x64 domain
     pays exchange and per-shard padding for nothing. Thresholds:
 
-    - some (rows, cols) factorization of the devices must satisfy the
-      lane/sublane shard quanta (>= 8 rows / >= 128 cols per shard —
-      the SAME viability scan the backend's auto mesh and the sharded
-      autotuner use, parallel/halo.viable_mesh_cols, so the selector
-      never rejects a wide-short domain the backend could viably
+    - some (rows, cols) factorization of the devices must give shards
+      at least as deep as the default halo (the SAME viability scan the
+      backend's auto mesh uses, parallel/halo.viable_mesh_cols, so the
+      selector never rejects a wide-short domain the backend could
       column-shard), and
-    - the whole domain must be >= ~1 Mcell — below that a single chip runs
-      the step in microseconds and any exchange/dispatch overhead dominates
-      (BENCHMARKS.md: shard_map wrapper alone costs 2-9% at 4096^2, far
-      more at small shapes).
+    - the whole domain must be >= ~1 Mcell — below that one device runs
+      a step in microseconds and the exchange overhead dominates.
 
     An explicit ``--backend sharded`` always wins; this gates only the
     automatic choice."""
+    from ..parallel import halo
+
     rows, cols = int(shape[0]), int(shape[1])
     if rows * cols < 1 << 20:
         return False
-    from ..parallel.halo import viable_mesh_cols
-
-    return bool(viable_mesh_cols((rows, cols), max(1, n_devices)))
+    return bool(halo.viable_mesh_cols((rows, cols), max(1, n_devices),
+                                      halo.DEFAULT_STEPS_PER_EXCHANGE))
 
 
 def best_backend_name(shape=None) -> str:
-    """Best available backend for the current platform (selector analog).
+    """Best available backend for the visible devices (selector analog).
 
-    ``shape``, when given, lets the selector skip the multi-chip backend
+    ``shape``, when given, lets the selector skip the multi-device backend
     for domains too small to amortize exchange (see
     :func:`sharded_worthwhile`); without it the historical device-count
     rule stands."""
@@ -100,13 +82,9 @@ def best_backend_name(shape=None) -> str:
         return forced
     import jax
 
-    devices = jax.devices()
-    platform = devices[0].platform
-    if len(devices) > 1 and "sharded" in BACKENDS and (
-            shape is None or sharded_worthwhile(shape, len(devices))):
+    n = len(jax.devices())
+    if n > 1 and (shape is None or sharded_worthwhile(shape, n)):
         return "sharded"
-    if platform == "tpu" and "pallas" in BACKENDS:
-        return "pallas"
     return "fused"
 
 

@@ -3,11 +3,15 @@
 The ladder rung that exists to prove a point, like the reference's
 `manualvec` ("demonstrate that manual SIMD is not worth it here",
 compute/manualvec/src/lib.rs): expressing the 3x3 stencil as
-``lax.conv_general_dilated`` routes it toward the MXU's convolution path,
-which is the wrong tool for a 2-species 3x3 stencil — the VPU shift algebra
-(`regular`/`fused`) and the Pallas kernel beat it. It is still a fully
-correct backend for both boundary semantics and is exercised by the parity
-suite.
+``lax.conv_general_dilated`` hands it to the convolution library (cuDNN on
+GPUs), a single-channel 3x3 convolution that moves the same bytes as the
+shift algebra of `regular`/`fused` plus the library's layout overheads.
+It is still a fully correct backend for both boundary semantics and is
+exercised by the parity suite.
+
+The convolution runs at ``lax.Precision.HIGHEST``: at the default
+precision cuDNN may compute in TF32, which keeps about three decimal
+digits and would break float32 parity with the oracle.
 
 Zero-border semantics are exactly SAME-padded convolution with corrected
 weights; the reference-naive semantics subtract a per-cell in-bounds weight
@@ -52,6 +56,7 @@ class ConvSimulation(Simulation):
                 window_strides=(1, 1),
                 padding="SAME",
                 dimension_numbers=("NHWC", "HWIO", "NHWC"),
+                precision=jax.lax.Precision.HIGHEST,
             )[0, :, :, 0]
 
         def laplacian(x):

@@ -1,10 +1,11 @@
 """`fused` backend: whole multi-step batch on device via lax.fori_loop.
 
-TPU analog of the reference GPU backends' one-command-buffer-many-dispatches
+The analog of the reference GPU backends' one-command-buffer-many-dispatches
 pattern (compute/gpu/naive/src/lib.rs:99-128): N simulation steps are traced
-into a single XLA executable with no host round-trip, with donated buffers
-so the double-buffer flip (Evolving::flip, data/src/concentration/mod.rs:181)
-becomes an in-place HBM buffer swap chosen by the compiler.
+into a single XLA executable with no host round-trip — on a GPU, one fused
+kernel launch per step inside the loop — with donated buffers so the
+double-buffer flip (Evolving::flip, data/src/concentration/mod.rs:181)
+becomes an in-place device-memory buffer swap chosen by the compiler.
 """
 
 from __future__ import annotations

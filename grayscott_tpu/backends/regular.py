@@ -2,7 +2,7 @@
 
 Analog of ``compute/regular`` (compute/regular/src/lib.rs:49-202): the
 reference splits the domain into a fast center (corrected weights,
-``fast_grid_iter``) and general edge slabs. On TPU that split is expressed
+``fast_grid_iter``) and general edge slabs. Here that split is expressed
 as whole-array shift algebra plus O(R+C) edge strips (see
 grayscott_tpu/ops/stencil.py), all fused by XLA into one pass — including
 the reference's documented edge anchoring quirk

@@ -1,10 +1,10 @@
-"""`sharded` backend: multi-chip row decomposition over a device mesh.
+"""`sharded` backend: multi-device spatial decomposition over a mesh.
 
-The TPU replacement for the reference's `parallel` backend (rayon fork-join
-over halo-overlapped grid splits, compute/parallel/src/lib.rs:29-121) — see
-grayscott_tpu/parallel/halo.py. Like the reference's
-``ParallelSimulation<BlockWiseSimulation<...>>`` composition, this wraps the
-single-chip Pallas kernel per shard and adds the distribution layer on top.
+The replacement for the reference's `parallel` backend (rayon fork-join
+over halo-overlapped grid splits, compute/parallel/src/lib.rs:29-121) —
+see grayscott_tpu/parallel/halo.py. Like the reference's
+``ParallelSimulation<...>`` composition, this wraps the plain XLA step per
+shard and adds the distribution layer on top.
 """
 
 from __future__ import annotations
@@ -17,33 +17,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..ops import megakernel as mk
-from ..ops import pallas_stencil as ps
-from ..parallel import halo
 from ..errors import UnsupportedConfigError
+from ..parallel import halo
 from ..params import Parameters
 from .base import Simulation, env_default
 
 
-@functools.partial(jax.jit, static_argnames=("shape", "chalo", "h"))
-def _mega_v_view(v_pairs, *, shape, chalo: int, h: int):
-    """Fused V-only snapshot view of the sharded megakernel pairs."""
-    return halo.mega_unshard_result(v_pairs, shape, h, chalo) \
-        .astype(jnp.float32)
-
-
-@functools.partial(jax.jit, static_argnames=("shape", "h"))
-def _mega2d_v_view(v_pairs, *, shape, h: int):
-    """Fused V-only snapshot view of the 2-D-mesh megakernel pairs."""
-    return halo.mega_unshard_result2d(v_pairs, shape, h) \
-        .astype(jnp.float32)
-
-
-@functools.partial(jax.jit, static_argnames=("shape", "chalo", "h"))
-def _windowed_v_view(v_blocks, *, shape, chalo: int, h: int):
-    """Fused V-only snapshot view of the sharded windowed blocks."""
-    return halo.unshard_result(v_blocks, shape, chalo, h) \
-        .astype(jnp.float32)
+@functools.partial(jax.jit, static_argnames=("shape",))
+def _v_view(v_blocks, *, shape):
+    """V reassembled in one executable, without materializing U."""
+    return halo.unshard_result(v_blocks, shape)
 
 
 class ShardedSimulation(Simulation):
@@ -55,472 +38,72 @@ class ShardedSimulation(Simulation):
         boundary: str = "naive",
         n_devices: int | None = None,
         mesh_cols: int | None = None,
-        block_rows: int | None = None,
-        block_cols: int | None = None,
-        steps_per_call: int | None = None,
-        interpret: bool | None = None,
-        dtype: str = "float32",
-        runtime_params: bool = True,
-        overlap: bool | str = "auto",
-        engine: str = "auto",
-        tuned_lookup: bool = True,
+        steps_per_exchange: int | None = None,
         **kwargs,
     ):
-        if engine not in ("auto", "windowed", "mega"):
-            raise ValueError(
-                f"engine must be auto/windowed/mega, got {engine!r}")
-        # 'auto' knobs follow a persisted sharded autotune record when one
-        # exists for this (topology, shape) — the PallasSimulation 'auto'
-        # contract — and the historical defaults (windowed, overlap off)
-        # otherwise. Explicit pins always name exactly what runs.
-        self._engine_req = engine
-        if isinstance(overlap, str):
-            if overlap not in ("auto", "on", "off"):
-                raise ValueError(
-                    f"overlap must be auto/on/off or bool, got {overlap!r}")
-            self._overlap_req = "auto" if overlap == "auto" \
-                else overlap == "on"
-        else:
-            self._overlap_req = bool(overlap)
-        overlap = self._overlap_req is True
-        self._explicit_k = steps_per_call is not None
-        self._mesh_cols_pin = mesh_cols
-        self._adopted = False
-        self.tuned_lookup = tuned_lookup
-        if engine == "auto":
-            engine = "windowed"
-        if engine == "mega":
-            if overlap:
-                raise UnsupportedConfigError(
-                    "engine='mega' overlaps exchange with interior compute "
-                    "in-kernel; --sharded-overlap applies to the windowed "
-                    "engine"
-                )
-            if steps_per_call not in (None, mk.MEGA_STEPS):
-                raise UnsupportedConfigError(
-                    "engine='mega' fixes steps-per-call at its exchange "
-                    f"depth K={mk.MEGA_STEPS}; drop --pallas-steps-per-call"
-                )
-            # the megakernel's exchange depth IS its time-block depth
-            steps_per_call = mk.MEGA_STEPS
-        elif block_cols is not None:
-            raise UnsupportedConfigError(
-                "--pallas-block-cols pins the megakernel's column tile; "
-                "the windowed sharded engine derives its own column "
-                "layout (2-D meshes shard columns instead)"
-            )
-        self.engine = engine
-        self.block_cols = block_cols
-        if steps_per_call is None:
-            on_tpu = jax.devices()[0].platform == "tpu"
-            steps_per_call = 16 if on_tpu else ps.HALO
         super().__init__(params, boundary)
-        # mesh_cols=None = AUTO: the (rows, cols) factorization is chosen
-        # from the domain geometry at first storage build
-        # (parallel/halo.choose_mesh_cols — the rayon longest-axis-split
-        # analog), because the domain shape is unknown here. An explicit
-        # int builds the mesh eagerly, exactly as before.
         if n_devices is not None and n_devices < 1:
             raise UnsupportedConfigError(
                 f"n_devices must be >= 1, got {n_devices} (omit the flag "
                 "to use every device)"
             )
-        self._n_devices = n_devices
-        self.mesh = None
-        self.chalo = 0
-        if not (1 <= steps_per_call <= 32):
-            raise ValueError(
-                f"steps_per_call must be in [1, 32], got {steps_per_call}"
-            )
-        self.block_rows = block_rows
-        self.steps_per_call = steps_per_call
-        # exchange depth = blocking depth rounded to the 8-row alignment
-        # quantum; column halos only needed (and paid for) on 2-D meshes
-        self.halo = ps.halo_for_steps(steps_per_call)
-        if mesh_cols is not None:
-            self._set_mesh(mesh_cols)
-        if interpret is None:
-            interpret = jax.devices()[0].platform != "tpu"
-        self.interpret = interpret
-        self.runtime_params = runtime_params  # see backends/pallas.py
-        # split interior/edge kernels so halo exchange overlaps interior
-        # compute (parallel/halo.py); pays on high-latency links, costs
-        # two extra fixed-overhead kernel launches per block on ICI
-        self.overlap = overlap
-        if dtype in (None, "float32", "f32"):
-            self.dtype = jnp.float32
-            self._dtype_str = "float32"
-        elif dtype in ("bfloat16", "bf16"):  # opt-in fast mode (see pallas)
-            self.dtype = jnp.bfloat16
-            self._dtype_str = "bfloat16"
-        else:
-            raise ValueError(f"unsupported dtype {dtype!r}")
-
-    def _adopt_record(self, shape) -> None:
-        """Adopt the persisted sharded autotune winner for this
-        (topology, shape) into every knob the user left unpinned — pins
-        always win, and geometry verdicts (tile/K/overlap) only transfer
-        when this sim resolved to the record's engine AND mesh (a tile
-        measured under one engine must not pin another). Latched on the
-        first build_storage, like the mesh factorization: later species
-        reuse the first shape's verdict."""
-        if self._adopted:
-            return
-        self._adopted = True
-        if not self.tuned_lookup:
-            return
-        from ..bench import autotune
-
-        n = self._n_devices or len(jax.devices())
-        rec = autotune.sharded_lookup(
-            self.params, shape, self.boundary, self._dtype_str, n,
-            mesh_cols=self._mesh_cols_pin,
-            engine=None if self._engine_req == "auto"
-            else self._engine_req,
-            overlap=None if self._overlap_req == "auto"
-            else self._overlap_req)
-        if not rec:
-            return
-        eng = rec.get("engine")
-        if self._engine_req == "auto" and eng in ("windowed", "mega"):
-            # a pinned overlap=on or a pinned K != MEGA_STEPS excludes
-            # the megakernel (the constructor's own conflict rules)
-            if not (eng == "mega" and (
-                    self._overlap_req is True
-                    or (self._explicit_k
-                        and self.steps_per_call != mk.MEGA_STEPS))):
-                self.engine = eng
-        if self.engine == "mega" and not self._explicit_k:
-            # not a record transfer: the megakernel's exchange depth IS
-            # its K (the constructor's own rule for explicit mega pins)
-            self.steps_per_call = mk.MEGA_STEPS
-            self.halo = ps.halo_for_steps(mk.MEGA_STEPS)
-        if self._mesh_cols_pin is not None:
-            # rebuild the pinned mesh: the adopted engine may change the
-            # mesh axis layout (1-D mega mesh) or the chalo ring
-            self._set_mesh(self._mesh_cols_pin)
-        elif self.mesh is None and rec.get("mesh_cols"):
-            self._set_mesh(int(rec["mesh_cols"]))
-        self._resolve_mesh(shape)
-        dev_shape = self.mesh.devices.shape
-        nc = dev_shape[1] if len(dev_shape) == 2 else 1
-        if rec.get("engine") != self.engine or \
-                int(rec.get("mesh_cols") or 1) != nc:
-            # geometry verdicts (tile/K/overlap) never transfer across
-            # an engine or mesh mismatch — K included (review r5 #1:
-            # a mega record's K=8 must not detune a pinned-windowed run)
-            return
-        if self.engine == "windowed" and not self._explicit_k \
-                and not self.interpret:
-            # interpreter mode keeps the small unroll (the pallas
-            # _tuned_k contract: deep K only pays on hardware)
-            k = rec.get("steps_per_call")
-            if k and 1 <= int(k) <= 32 and int(k) != self.steps_per_call:
-                self.steps_per_call = int(k)
-                self.halo = ps.halo_for_steps(int(k))
-                # chalo tracks halo on 2-D windowed meshes: rebuild
-                self._set_mesh(nc)
-        if self.block_rows is None and rec.get("block_rows"):
-            self.block_rows = int(rec["block_rows"])
-        if self.engine == "mega" and self.block_cols is None and \
-                rec.get("block_cols"):
-            self.block_cols = int(rec["block_cols"])
-        if self._overlap_req == "auto" and self.engine == "windowed":
-            self.overlap = bool(rec.get("overlap"))
-
-    def _set_mesh(self, mesh_cols: int) -> None:
-        """Build the device mesh for ``mesh_cols`` columns. The 1-D
-        megakernel's remote DMAs address neighbors by the one row axis,
-        so it gets the single-axis mesh; the 2-D megakernel and the
-        windowed engine take the (rows, cols) grid."""
-        if mesh_cols < 1:
+        if mesh_cols is not None and mesh_cols < 1:
             raise UnsupportedConfigError(
                 f"mesh_cols must be >= 1, got {mesh_cols} (omit the flag "
                 "for automatic factorization)"
             )
-        self.mesh = (halo.make_mesh_1d(self._n_devices)
-                     if self.engine == "mega" and mesh_cols == 1
-                     else halo.make_mesh(self._n_devices, mesh_cols))
-        # windowed 2-D meshes exchange a halo-deep column ring; the 2-D
-        # MEGAKERNEL's ring is the 128-lane COL_HALO (its build path
-        # reads ps.COL_HALO directly — keep this invariant in agreement)
-        if mesh_cols == 1:
-            self.chalo = 0
-        elif self.engine == "mega":
-            self.chalo = ps.COL_HALO
-        else:
-            self.chalo = self.halo
+        k = steps_per_exchange or halo.DEFAULT_STEPS_PER_EXCHANGE
+        if not 1 <= k <= 32:
+            raise ValueError(f"steps_per_exchange must be in [1, 32], got {k}")
+        self.steps_per_exchange = k
+        self._n_devices = n_devices
+        # mesh_cols=None = AUTO: the (rows, cols) factorization is chosen
+        # from the domain geometry at first storage build
+        # (halo.choose_mesh_cols), because the domain shape is unknown here
+        self.mesh = (None if mesh_cols is None
+                     else halo.make_mesh(n_devices, mesh_cols))
 
     def _resolve_mesh(self, shape) -> None:
-        """AUTO mesh factorization on first use: pick (rows, cols) from
-        the domain geometry (halo.choose_mesh_cols), preferring 1-D
-        unless 2-D cuts per-chip exchange volume decisively."""
-        if self.mesh is not None:
-            return
-        n = self._n_devices or len(jax.devices())
-        self._set_mesh(halo.choose_mesh_cols(n, shape))
-
-    def _tr(self, shape) -> int:
-        self._resolve_mesh(shape)
-        r, c = shape
-        nr, nc = self.mesh.devices.shape
-        r_loc = -(-r // max(nr, 1))
-        # per-shard kernel window width: local columns plus both column
-        # halos on 2-D meshes. Boundary/halo must reach the tile heuristic
-        # so its compile-ceiling guard sees the real window (a naive-
-        # boundary full-width shard at C=4096 is exactly the measured
-        # pathological compile, ops/pallas_stencil.py COMPILE_CEILING).
-        c_loc = -(-c // max(nc, 1)) + (2 * self.chalo if nc > 1 else 0)
-        tr = self.block_rows or ps.choose_block_rows(
-            r_loc, c_loc, halo=self.halo, boundary=self.boundary
-        )
-        while tr > 8 and tr > -(-r_loc // 8) * 8:
-            tr -= 8
-        return tr
-
-    def _mega_tiles(self, r_loc: int, c: int):
-        """(tr, tc) for the per-chip slab: pins first (a pinned tr alone
-        means full-width windows — the backends/pallas.py contract),
-        then the geometry heuristic (which column-tiles wide slabs)."""
-        tr, tc = self.block_rows, self.block_cols
-        if tc is not None and tc >= c:
-            tc = None
-        if tr is None and tc is None:
-            return mk.choose_mega_geometry(r_loc, c, self.halo,
-                                           boundary=self.boundary)
-        if tr is None:
-            tr = mk.choose_mega_rows(
-                r_loc, c, self.halo,
-                tc=tc, chalo=ps.COL_HALO if tc is not None else 0,
-                boundary=self.boundary,
-            )
-        return tr, tc
-
-    def _mega_tiles_2d(self, r_loc: int, c_loc: int):
-        """(tr, tc) for a (rows x cols)-mesh shard: column tiling is
-        mandatory (the 128-lane ring IS the mesh column halo), so a
-        full-width heuristic verdict maps to ONE covering column tile —
-        the ring overhead is paid either way on a 2-D mesh."""
-        tr, tc = self.block_rows, self.block_cols
-        cover = -(-c_loc // 128) * 128
-        if tc is not None and tc > cover:
-            # an over-wide pin is meaningless here: the covering tile is
-            # the widest geometry a 2-D shard can have (same
-            # neutralization as the 1-D _mega_tiles' tc >= c rule)
-            tc = cover
-        if tc is None:
-            _, tc = mk.choose_mega_geometry(r_loc, c_loc, self.halo,
-                                            boundary=self.boundary)
-            if tc is None:
-                tc = cover
-        if tr is None:
-            tr = mk.choose_mega_rows(
-                r_loc, c_loc, self.halo, tc=tc, chalo=ps.COL_HALO,
-                boundary=self.boundary,
-            )
-        return tr, tc
-
-    def _build_storage_mega2d(self, u: np.ndarray, v: np.ndarray):
-        nr, nc = self.mesh.devices.shape
-        r_loc = -(-u.shape[0] // nr)
-        c_loc = -(-u.shape[1] // nc)
-        if c_loc < 128:
-            raise UnsupportedConfigError(
-                f"2-D mesh shards would be {c_loc} columns wide "
-                "(narrower than one 128-lane tile); use fewer mesh "
-                "columns"
-            )
-        tr, tc = self._mega_tiles_2d(r_loc, c_loc)
-        if not mk.mega_ok((r_loc, c_loc), tr, self.halo, tc=tc,
-                          boundary=self.boundary, cover=True):
-            raise UnsupportedConfigError(
-                f"sharded engine='mega' cannot fit a {r_loc}x{c_loc} "
-                "per-chip tile in VMEM windows; use the windowed engine "
-                "for this domain"
-            )
-        up, vp, _, _ = halo.mega_shard_state2d(
-            u, v, self.mesh, tr, tc, self.halo, dtype=self.dtype
-        )
-        return ("mega2d", up, vp, tr, tc)
+        if self.mesh is None:
+            n = self._n_devices or len(jax.devices())
+            self.mesh = halo.make_mesh(
+                n, halo.choose_mesh_cols(n, shape, self.steps_per_exchange))
 
     def build_storage(self, u: np.ndarray, v: np.ndarray):
-        self._adopt_record(u.shape)
         self._resolve_mesh(u.shape)
-        if self.engine == "mega":
-            # report pin-alignment violations by name: mega_ok folds
-            # them into a bare False, which the gates below would
-            # misreport as a VMEM failure with remediation advice
-            # ("use the windowed engine") that ALSO rejects the pin
-            if self.block_rows is not None and (
-                    self.block_rows < 8 or self.block_rows % 8):
-                raise UnsupportedConfigError(
-                    "engine='mega' needs block_rows as a positive "
-                    f"multiple of 8, got {self.block_rows}"
-                )
-            if self.block_cols is not None and (
-                    self.block_cols < 128 or self.block_cols % 128):
-                raise UnsupportedConfigError(
-                    "engine='mega' needs block_cols as a positive "
-                    f"multiple of 128, got {self.block_cols}"
-                )
-            if self.mesh.devices.ndim == 2:
-                return self._build_storage_mega2d(u, v)
-            n_sh = self.mesh.devices.shape[0]
-            r_loc = -(-u.shape[0] // n_sh)
-            tr, tc = self._mega_tiles(r_loc, u.shape[1])
-            if not mk.mega_ok((r_loc, u.shape[1]), tr, self.halo, tc=tc,
-                              boundary=self.boundary):
-                # choose_mega_rows falls back to tr=8 even when no tile
-                # fits: fail here instead of a Mosaic scoped-VMEM
-                # failure or a remote-compile hang on an ultra-wide slab
-                raise UnsupportedConfigError(
-                    f"sharded engine='mega' cannot fit a {r_loc}x"
-                    f"{u.shape[1]} per-chip slab in VMEM windows; use "
-                    "the windowed engine for this domain"
-                )
-            up, vp, _ = halo.mega_shard_state(
-                u, v, self.mesh, tr, self.halo, tc=tc, dtype=self.dtype
+        nr, nc = self.mesh.devices.shape
+        if not halo.mesh_viable(u.shape, nr, nc, self.steps_per_exchange):
+            r_loc, c_loc = halo.shard_extents(u.shape, (nr, nc))
+            raise UnsupportedConfigError(
+                f"a {u.shape[0]}x{u.shape[1]} domain on a {nr}x{nc} mesh "
+                f"gives {r_loc}x{c_loc} shards, too small for a "
+                f"{self.steps_per_exchange}-deep halo; use fewer devices, "
+                "another --sharded-mesh-cols or fewer steps per exchange"
             )
-            return ("mega", up, vp, tr, tc)
-        tr = self._tr(u.shape)
-        ub, vb, _ = halo.shard_state(
-            u, v, self.mesh, tr, self.chalo, self.halo, dtype=self.dtype
-        )
-        return ("windowed", ub, vb, tr)
+        return halo.shard_state(u, v, self.mesh)
 
     def extract_uv(self, storage, shape) -> Tuple[jax.Array, jax.Array]:
-        if storage[0] == "mega2d":  # ("mega2d", up, vp, tr, tc)
-            out = (
-                halo.mega_unshard_result2d(storage[1], shape, self.halo),
-                halo.mega_unshard_result2d(storage[2], shape, self.halo),
-            )
-            if self.dtype != jnp.float32:
-                out = tuple(x.astype(jnp.float32) for x in out)
-            return out
-        if storage[0] == "mega":  # ("mega", up, vp, tr, tc)
-            chalo = ps.COL_HALO if storage[4] is not None else 0
-            out = (
-                halo.mega_unshard_result(storage[1], shape, self.halo,
-                                         chalo),
-                halo.mega_unshard_result(storage[2], shape, self.halo,
-                                         chalo),
-            )
-            if self.dtype != jnp.float32:  # consumers expect f32 host views
-                out = tuple(x.astype(jnp.float32) for x in out)
-            return out
-        out = (
-            halo.unshard_result(storage[1], shape, self.chalo, self.halo),
-            halo.unshard_result(storage[2], shape, self.chalo, self.halo),
-        )
-        if self.dtype != jnp.float32:  # consumers expect f32 host views
-            out = tuple(x.astype(jnp.float32) for x in out)
-        return out
+        return tuple(halo.unshard_result(x, shape) for x in storage)
 
     def extract_result(self, storage, shape):
-        """V only, fused (crop + reassemble + upcast in one executable):
-        the base extract_uv()[1] would also materialize U's full (R, C)
-        f32 view per snapshot — at HBM-scale domains that is the
-        difference between fitting and ResourceExhausted (same rationale
-        as PallasSimulation.extract_result)."""
-        shape = tuple(shape)
-        if storage[0] == "mega2d":
-            return _mega2d_v_view(storage[2], shape=shape, h=self.halo)
-        if storage[0] == "mega":
-            chalo = ps.COL_HALO if storage[4] is not None else 0
-            return _mega_v_view(storage[2], shape=shape, chalo=chalo,
-                                h=self.halo)
-        return _windowed_v_view(storage[2], shape=shape, chalo=self.chalo,
-                                h=self.halo)
-
-    def _reaction(self):
-        """(kernel_params, reaction operand, dt_is_one) per the mode."""
-        return ps.reaction_mode(self.params, self.runtime_params)
+        return _v_view(storage[1], shape=tuple(shape))
 
     def run_steps(self, storage, shape, steps: int):
-        if storage[0] == "mega2d":
-            return self._run_steps_mega2d(storage, shape, steps)
-        if storage[0] == "mega":
-            return self._run_steps_mega(storage, shape, steps)
-        _, u, v, tr = storage
-        r, c = shape
-        k = self.steps_per_call
+        u, v = storage
+        k = self.steps_per_exchange
         n_full, rem = divmod(steps, k)
-        kernel_params, reaction, dt_is_one = self._reaction()
-        common = dict(
-            mesh=self.mesh, r_total=r, c_total=c,
-            halo=self.halo, chalo=self.chalo,
-            tr=tr, params=kernel_params,
-            boundary=self.boundary, interpret=self.interpret,
-            overlap=self.overlap, dt_is_one=dt_is_one,
-        )
+        common = dict(mesh=self.mesh, shape=tuple(shape), params=self.params,
+                      boundary=self.boundary)
         if n_full:
-            u, v = halo.sharded_run_blocks(
-                u, v, jnp.int32(n_full), reaction, steps=k, **common
-            )
+            u, v = halo.sharded_run_blocks(u, v, jnp.int32(n_full), steps=k,
+                                           **common)
         if rem:
-            u, v = halo.sharded_run_blocks(
-                u, v, jnp.int32(1), reaction, steps=rem, **common
-            )
-        return ("windowed", u, v, tr)
-
-    def _run_steps_mega(self, storage, shape, steps: int):
-        _, u, v, tr, tc = storage
-        r, c = shape
-        kernel_params, reaction, dt_is_one = self._reaction()
-        common = dict(
-            mesh=self.mesh, r_total=r, tr=tr, params=kernel_params,
-            boundary=self.boundary, halo=self.halo,
-            interpret=self.interpret, dt_is_one=dt_is_one,
-            tc=tc, c_dom=c if tc is not None else None,
-        )
-        n_full, rem = divmod(steps, mk.MEGA_STEPS)
-        if n_full:
-            u, v = halo.sharded_mega_run(
-                u, v, jnp.int32(n_full), reaction,
-                steps=mk.MEGA_STEPS, **common,
-            )
-        if rem:
-            u, v = halo.sharded_mega_run(
-                u, v, jnp.int32(1), reaction, steps=rem, **common,
-            )
-        return ("mega", u, v, tr, tc)
-
-    def _run_steps_mega2d(self, storage, shape, steps: int):
-        _, u, v, tr, tc = storage
-        r, c = shape
-        kernel_params, reaction, dt_is_one = self._reaction()
-        common = dict(
-            mesh=self.mesh, r_total=r, c_total=c, tr=tr, tc=tc,
-            params=kernel_params, boundary=self.boundary, halo=self.halo,
-            interpret=self.interpret, dt_is_one=dt_is_one,
-        )
-        n_full, rem = divmod(steps, mk.MEGA_STEPS)
-        if n_full:
-            u, v = halo.sharded_mega_run2d(
-                u, v, jnp.int32(n_full), reaction,
-                steps=mk.MEGA_STEPS, **common,
-            )
-        if rem:
-            u, v = halo.sharded_mega_run2d(
-                u, v, jnp.int32(1), reaction, steps=rem, **common,
-            )
-        return ("mega2d", u, v, tr, tc)
+            u, v = halo.sharded_run_blocks(u, v, jnp.int32(1), steps=rem,
+                                           **common)
+        return (u, v)
 
     @classmethod
     def add_cli_args(cls, parser: argparse.ArgumentParser) -> None:
-        parser.add_argument(
-            "--sharded-engine", choices=["auto", "windowed", "mega"],
-            default=env_default("GRAYSCOTT_SHARDED_ENGINE", "auto",
-                                choices=["auto", "windowed", "mega"]),
-            help="Multi-chip engine: 'windowed' exchanges halos with "
-            "ppermute between per-K-block kernel launches; 'mega' runs "
-            "the WHOLE step loop in one kernel launch per chip with "
-            "in-kernel remote-DMA halo exchange over ICI (1-D row "
-            "meshes, or 8-direction exchange on --sharded-mesh-cols > 1 "
-            "grids; f32 or --pallas-dtype bfloat16 storage). 'auto' "
-            "(default) follows a persisted --autotune verdict for this "
-            "topology and falls back to windowed",
-        )
         parser.add_argument(
             "--sharded-devices", type=int,
             default=env_default("GRAYSCOTT_SHARDED_DEVICES", None, int),
@@ -530,33 +113,23 @@ class ShardedSimulation(Simulation):
             "--sharded-mesh-cols", type=int,
             default=env_default("GRAYSCOTT_SHARDED_MESH_COLS", None, int),
             help="Mesh columns for 2-D spatial decomposition (default: "
-            "auto — the (rows, cols) factorization minimizing per-chip "
+            "auto — the (rows, cols) factorization minimizing per-device "
             "halo exchange for the domain geometry, 1-D preferred; "
             "1 forces row sharding only)",
         )
         parser.add_argument(
-            "--sharded-overlap", choices=["auto", "on", "off"],
-            default=env_default("GRAYSCOTT_SHARDED_OVERLAP", "auto",
-                                choices=["auto", "on", "off"]),
-            help="Overlap halo exchange with interior compute by splitting "
-            "the per-shard kernel (windowed engine; three slabs on 1-D "
-            "meshes, five on 2-D; pays on high-latency DCN links, costs "
-            "extra kernel launches per block on ICI). 'auto' (default) "
-            "follows a persisted --autotune verdict and falls back to off",
+            "--sharded-steps-per-exchange", type=int,
+            default=env_default("GRAYSCOTT_SHARDED_STEPS_PER_EXCHANGE", None,
+                                int),
+            help="Steps between halo exchanges, which is also the halo "
+            f"depth (default {halo.DEFAULT_STEPS_PER_EXCHANGE}; 1-32)",
         )
 
     @classmethod
     def args_from_namespace(cls, ns: argparse.Namespace):
-        k = getattr(ns, "pallas_steps_per_call", None)
         return {
             "n_devices": getattr(ns, "sharded_devices", None),
             "mesh_cols": getattr(ns, "sharded_mesh_cols", None),
-            "block_rows": getattr(ns, "pallas_block_rows", None),
-            "block_cols": getattr(ns, "pallas_block_cols", None),
-            "steps_per_call": k,
-            "dtype": getattr(ns, "pallas_dtype", "float32"),
-            "runtime_params": getattr(
-                ns, "pallas_runtime_params", "on") != "off",
-            "overlap": getattr(ns, "sharded_overlap", "auto"),
-            "engine": getattr(ns, "sharded_engine", "auto"),
+            "steps_per_exchange": getattr(ns, "sharded_steps_per_exchange",
+                                          None),
         }

@@ -218,7 +218,7 @@ _SERIES_COLORS = ("#2a78d6", "#eb6834", "#1baf7a", "#eda100",
 
 #: Canonical backend order = the performance ladder; a backend keeps its
 #: color across reports regardless of which subset was swept.
-_LADDER = ("naive", "regular", "conv", "fused", "pallas", "sharded")
+_LADDER = ("naive", "regular", "conv", "fused", "sharded")
 
 
 def _series_color(backend: str, seen_extra: List[str]) -> str:

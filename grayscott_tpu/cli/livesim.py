@@ -8,7 +8,7 @@ amplitude scale 2 (``ui/src/lib.rs:115-123``,
 
 The reference renders through Vulkan swapchains with the GPU backends
 *sharing* their compute context with the renderer (livesim/src/context.rs:
-34-48). The TPU analog of that zero-copy idea: the palette *index* is
+34-48). The analog of that zero-copy idea: the palette *index* is
 computed on device (a uint8 array, 4x smaller than f32 over the host link)
 and only colorized host-side. Three frontends, picked automatically:
 

@@ -16,7 +16,6 @@ import os
 from typing import Tuple
 
 from ..params import DEFAULT_STENCIL, Parameters, PRESETS, STENCILS
-from ..utils.runtime import env_flag
 
 
 def add_shared_args(parser: argparse.ArgumentParser) -> None:
@@ -78,14 +77,6 @@ def add_shared_args(parser: argparse.ArgumentParser) -> None:
         help="Boundary semantics: 'naive' = reference CPU backends "
         "(clamped window), 'zero' = reference GPU backends (zero border)",
     )
-    parser.add_argument(
-        "--autotune", action="store_true",
-        default=env_flag("GRAYSCOTT_AUTOTUNE"),
-        help="Measure kernel specializations for this domain on the live "
-        "device before starting and pin the winner (persisted in "
-        "~/.cache/grayscott_tpu/autotune.json; pallas and sharded "
-        "backends). First run pays one compile per candidate",
-    )
     # Backend-specific args (clap flatten analog)
     from ..backends import BACKENDS
 
@@ -131,26 +122,6 @@ def make_simulation(ns: argparse.Namespace):
         from ..utils import device as _device
 
         logger.debug("device capabilities:\n%s", _device.capability_dump())
-    if getattr(ns, "autotune", False) and name == "pallas":
-        from ..bench import autotune
-
-        autotune.autotune(
-            params, domain_shape(ns), ns.boundary, verbose=True,
-            dtype=kwargs.get("dtype") or "float32",
-        )  # winner persists; the sim below adopts it via lookup
-    elif getattr(ns, "autotune", False) and name == "sharded":
-        from ..bench import autotune
-
-        # user pins restrict the candidate set (the tuner never measures
-        # configs the requested simulation could not run)
-        autotune.sharded_autotune(
-            params, domain_shape(ns), ns.boundary, verbose=True,
-            dtype=kwargs.get("dtype") or "float32",
-            n_devices=kwargs.get("n_devices"),
-            mesh_cols=kwargs.get("mesh_cols"),
-            engine=kwargs.get("engine"),
-            overlap=kwargs.get("overlap"),
-        )  # winner persists; the sim below adopts it via sharded_lookup
     return cls(params, boundary=ns.boundary, **kwargs)
 
 

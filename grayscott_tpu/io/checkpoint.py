@@ -14,7 +14,6 @@ import json
 import os
 from typing import Tuple
 
-import h5py
 import numpy as np
 
 from ..params import Parameters, Precision
@@ -33,6 +32,8 @@ def save_state(
     v = np.asarray(v, dtype=Precision)
     if u.shape != v.shape:
         raise ValueError(f"u/v shape mismatch: {u.shape} vs {v.shape}")
+    import h5py
+
     with h5py.File(path, "w") as f:
         f.create_dataset("u", data=u)
         f.create_dataset("v", data=v)
@@ -44,6 +45,8 @@ def save_state(
 def load_state(
     path: os.PathLike | str,
 ) -> Tuple[np.ndarray, np.ndarray, Parameters, int]:
+    import h5py
+
     with h5py.File(path, "r") as f:
         if int(f.attrs.get("format_version", -1)) != FORMAT_VERSION:
             raise ValueError(f"{path}: not a grayscott-tpu checkpoint")

@@ -12,7 +12,6 @@ from __future__ import annotations
 import os
 from typing import Iterator, Optional, Tuple
 
-import h5py
 import numpy as np
 
 from ..params import Precision
@@ -46,6 +45,8 @@ class Writer:
         dataset_name: str = DEFAULT_DATASET,
     ):
         rows, cols = shape
+        import h5py
+
         self._file = h5py.File(file_name, "w")
         self._dataset = self._file.create_dataset(
             dataset_name,
@@ -79,6 +80,8 @@ class Reader:
         file_name: os.PathLike | str,
         dataset_name: str = DEFAULT_DATASET,
     ):
+        import h5py
+
         self._file = h5py.File(file_name, "r")
         self._dataset = self._file[dataset_name]
         if self._dataset.ndim != 3:

@@ -32,8 +32,11 @@ _png_scratch = threading.local()
 def _build() -> bool:
     # compile to a temp name and rename over: atomic, and the fresh inode
     # guarantees a later CDLL really loads the new image (dlopen caches
-    # the old mapping by inode when a stale library was bound first)
-    tmp = _LIB_PATH + ".build"
+    # the old mapping by inode when a stale library was bound first).
+    # The temp name is per process: processes that build at once (test
+    # workers on a fresh checkout) each finish their own file, and the
+    # last rename wins
+    tmp = f"{_LIB_PATH}.{os.getpid()}.build"
     try:
         # -ffp-contract=off: refstep.cpp's transcription contract — no FMA
         # fusion, every written f32 operation rounds exactly once (rustc's
@@ -48,6 +51,8 @@ def _build() -> bool:
         os.replace(tmp, _LIB_PATH)
         return True
     except (OSError, subprocess.SubprocessError):
+        if os.path.exists(tmp):
+            os.unlink(tmp)
         return False
 
 

@@ -28,8 +28,8 @@
 //
 // gs_ref_ftz() reproduces the reference's DenormalsFlusher
 // (compute/shared/src/lib.rs:123-213): it sets the SSE MXCSR FTZ+DAZ
-// bits, which is also the TPU's (and the oracle-vs-TPU comparison's)
-// operating mode. At simulation concentrations (O(0.01..1)) no
+// bits, the reference's benchmarking mode. At simulation
+// concentrations (O(0.01..1)) no
 // intermediate ever enters the denormal range, so FTZ on/off must not
 // change results — tests assert exactly that.
 

@@ -1,11 +1,10 @@
 """Functional core: the Gray-Scott update as pure JAX functions.
 
-This is the TPU re-design of the reference's per-backend stencil loops
+This is the JAX re-design of the reference's per-backend stencil loops
 (naive: ``compute/naive/src/lib.rs:43-82``; optimized corrected-weights form:
 ``data/src/parameters.rs:57-63`` + ``compute/autovec/src/lib.rs:52-115``).
 Instead of pointer-walking loops, the update is expressed as whole-array
-shift algebra that XLA fuses into a single pass (and that the Pallas kernel
-re-uses tile-wise in VMEM).
+shift algebra that XLA fuses into a single pass.
 
 Key algebraic identity used by the fast paths (derivation in SURVEY.md
 terms): for a symmetric stencil ``[[a,b,a],[b,c,b],[a,b,a]]`` with
@@ -177,7 +176,7 @@ def laplacian_fast(x: Array, params: Parameters, boundary: str) -> Array:
 
 
 # ---------------------------------------------------------------------------
-# Naive-semantics edge strips (shared with the Pallas kernel)
+# Naive-semantics edge strips
 # ---------------------------------------------------------------------------
 
 
@@ -194,7 +193,6 @@ def naive_edge_strip(lane0: Array, lane1: Array, w2) -> Array:
 
     with the along-strip index map c' = max(c-1, 0) + j, valid while
     c' <= min(c+1, n-1) and j' = j (the anchoring quirk at c == 0).
-    Pure jnp on 1-D values so the Pallas kernel can reuse it on VMEM slices.
     """
     static = isinstance(w2, np.ndarray)
     n = lane0.shape[-1]
@@ -290,6 +288,77 @@ def step(
     full_u = laplacian(u, params, boundary, exact=exact)
     full_v = laplacian(v, params, boundary, exact=exact)
     return reaction(u, v, full_u, full_v, params)
+
+
+# ---------------------------------------------------------------------------
+# Step on a window of a larger domain (the per-shard step)
+# ---------------------------------------------------------------------------
+
+
+def slab_step(u: Array, v: Array, row0, col0, shape: Tuple[int, int],
+              params: Parameters, boundary: str = "naive"
+              ) -> Tuple[Array, Array]:
+    """One step on an (a, b) window of a global (R, C) domain.
+
+    The window carries one ring of neighbour cells around the (a-2, b-2)
+    cells it updates; its element [1, 1] sits at global ``(row0, col0)``
+    (traced scalars allowed, so one executable serves every shard).
+    Returns the updated (a-2, b-2) interior. Boundary handling follows the
+    global index of each cell, so it applies only where the window holds
+    the domain's edge:
+
+    - ``zero``: out-of-domain cells read as 0 (the caller keeps them 0);
+    - ``naive``: taps outside the clamped window contribute nothing, and
+      global row 0 / column 0 keep the reference's top-left weight
+      anchoring (see :mod:`grayscott_tpu.oracle`), summed in the oracle's
+      term order.
+
+    Output cells outside the domain are set to 0.
+    """
+    rows, cols = shape
+    n, m = u.shape[0] - 2, u.shape[1] - 2
+    gr = row0 + jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)
+    gc = col0 + jax.lax.broadcasted_iota(jnp.int32, (1, m), 1)
+    w = params.weights_array()
+
+    def tap(x, di, dj):
+        return jax.lax.slice(x, (1 + di, 1 + dj), (1 + di + n, 1 + dj + m))
+
+    def lap(x, center):
+        full = jnp.zeros_like(center)
+        if boundary == "zero":
+            for i in range(3):
+                for j in range(3):
+                    if w[i, j] != 0.0:
+                        full = full + w[i, j] * (tap(x, i - 1, j - 1) - center)
+            return full
+        # naive: tap i reads global row max(gr-1, 0) + i while that row is
+        # <= min(gr+1, R-1); on row 0 that is offset i, elsewhere i - 1
+        top, left = gr == 0, gc == 0
+        for i in range(3):
+            rok = jnp.maximum(gr - 1, 0) + i <= jnp.minimum(gr + 1, rows - 1)
+            for j in range(3):
+                if w[i, j] == 0.0:
+                    continue
+                cok = jnp.maximum(gc - 1, 0) + j <= jnp.minimum(gc + 1,
+                                                                cols - 1)
+                t = tap(x, i - 1, j - 1)
+                if j < 2:
+                    t = jnp.where(left, tap(x, i - 1, j), t)
+                if i < 2:
+                    t_top = tap(x, i, j - 1)
+                    if j < 2:
+                        t_top = jnp.where(left, tap(x, i, j), t_top)
+                    t = jnp.where(top, t_top, t)
+                full = full + jnp.where(rok & cok, w[i, j] * (t - center),
+                                        Precision(0.0))
+        return full
+
+    cu, cv = tap(u, 0, 0), tap(v, 0, 0)
+    nu, nv = reaction(cu, cv, lap(u, cu), lap(v, cv), params)
+    inside = (gr >= 0) & (gr < rows) & (gc >= 0) & (gc < cols)
+    zero = Precision(0.0)
+    return jnp.where(inside, nu, zero), jnp.where(inside, nv, zero)
 
 
 # ---------------------------------------------------------------------------

@@ -1,31 +1,34 @@
-"""Multi-chip spatial decomposition: shard_map + ppermute halo exchange.
+"""Multi-device spatial decomposition: shard_map + ppermute halo exchange.
 
-This is the TPU replacement for the reference's shared-memory fork-join
-parallelism (``compute/parallel/src/lib.rs:29-121``). The reference splits
-the grid across rayon worker threads with halo-overlapped input views
+This replaces the reference's shared-memory fork-join parallelism
+(``compute/parallel/src/lib.rs:29-121``). The reference splits the grid
+across rayon worker threads with halo-overlapped input views
 (``SimulateCpu::split_grid``, compute/shared/src/cpu.rs:112-154) — because
-memory is shared, halos are implicit overlapping reads. Across TPU chips
-the halo must be explicit: each device owns a contiguous tile of the domain
-and, once per K-step block, exchanges its HALO boundary rows (and, on 2-D
-meshes, columns) with its neighbors via ``lax.ppermute`` over ICI, writing
-them into the padding slots of the local kernel buffer. Devices at the ends
-of the (non-wrapped) permutation receive zeros — exactly the zero-border
+memory is shared, halos are implicit overlapping reads. Across devices the
+halo must be explicit: each device owns a contiguous tile of the domain
+and, once per K-step block, receives K boundary rows (and, on 2-D meshes,
+columns) from its neighbours via ``lax.ppermute``, which XLA hands to the
+collective library (NCCL on GPUs). Devices at the ends of the
+(non-wrapped) permutation receive zeros — exactly the zero-border
 condition of the global domain.
 
 2-D meshes use the classic two-phase exchange: rows first (full local
-width, stale column halos included), then columns including the
-freshly-received row-halo rows — which delivers the diagonal-neighbor
-corner blocks without explicit corner messages.
+width), then columns of the row-extended tile — which delivers the
+diagonal-neighbour corner blocks without explicit corner messages.
 
-K-deep halos amortize exchange latency over K fused steps (the tuning knob
-anticipated in SURVEY.md section 5 "long-context analog"), and the whole
-``n_blocks`` loop runs in ONE executable per device (no host round-trips).
+K-deep halos amortize exchange latency over K steps: step s of a block
+updates the tile plus the K - 1 - s rings of halo that later steps still
+read, so the halo shrinks by one ring per step and no exchange happens
+inside the block. Every step is the plain XLA slab step
+(:func:`grayscott_tpu.ops.stencil.slab_step`); the boundary semantics
+follow each cell's global index, computed from ``axis_index`` times the
+local extent, so the reference-naive edge quirk stays exact on the shards
+that hold the domain's edges. The whole ``n_blocks`` loop runs in one
+executable per device (no host round-trips).
 
-Each shard's state layout is the single-chip Pallas layout extended with
-column padding (``(HALO + R_loc + HALO, CHALO + C_loc + CHALO)``), so the
-same kernel runs unchanged — only its origin scalars differ per shard,
-which also keeps the reference-naive edge semantics exact across shard
-boundaries.
+Mesh rule: a shard must be at least K rows deep when rows are split, and
+K columns wide when columns are split, so that one neighbour supplies the
+whole K-deep halo.
 """
 
 from __future__ import annotations
@@ -38,745 +41,169 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops import pallas_stencil as ps
+from ..ops import stencil
 from ..params import Parameters
 
 ROWS = "rows"
 COLS = "cols"
 
+#: Default steps per halo exchange (the halo depth K).
+DEFAULT_STEPS_PER_EXCHANGE = 8
+
 
 def make_mesh(n_devices: int | None = None, n_cols: int = 1) -> Mesh:
-    """1-D row mesh by default; (n_rows, n_cols) grid when n_cols > 1.
-
-    On real multi-chip slices the (rows, cols) grid is laid out with
-    ``mesh_utils.create_device_mesh`` so neighboring mesh coordinates
-    sit on neighboring ICI links (the device ``coords`` topology);
-    virtual/CPU devices carry no topology, so they keep plain order."""
+    """(n_rows, n_cols) device grid in ``jax.devices()`` order: every
+    device reaches every other one at the same rate, so the mesh follows
+    the decomposition alone."""
     devices = jax.devices()
     n = n_devices or len(devices)
     if n > len(devices):
         raise ValueError(f"requested {n} devices, have {len(devices)}")
     if n % n_cols != 0:
         raise ValueError(f"{n} devices not divisible by {n_cols} mesh columns")
-    shape = (n // n_cols, n_cols)
-    if devices[0].platform == "tpu" and n == len(devices):
-        try:
-            from jax.experimental import mesh_utils
-
-            grid = mesh_utils.create_device_mesh(shape)
-            return Mesh(grid, (ROWS, COLS))
-        except Exception:  # odd topologies: fall back to plain order
-            pass
-    grid = np.asarray(devices[:n]).reshape(shape)
+    grid = np.asarray(devices[:n]).reshape(n // n_cols, n_cols)
     return Mesh(grid, (ROWS, COLS))
 
 
-def viable_mesh_cols(shape, n: int, min_rows: int = 8,
-                     min_cols: int = 128) -> list[int]:
-    """Every divisor of ``n`` whose (rows, cols) factorization satisfies
-    the lane/sublane shard quanta on ``shape`` (possibly EMPTY: callers
-    decide the fallback). The single source of the viability rule shared
-    by :func:`choose_mesh_cols`, the sharded autotuner's candidate
-    generation, and the backend auto-selector's worthwhileness gate —
-    three copies of this scan disagreed in round 5."""
-    r, c = shape
-    out = []
-    for nc in range(1, n + 1):
-        if n % nc:
-            continue
-        nr = n // nc
-        if nc > 1 and -(-c // nc) < min_cols:
-            continue
-        if nr > 1 and -(-r // nr) < min_rows:
-            continue
-        out.append(nc)
-    return out
+def shard_extents(shape, mesh_shape) -> Tuple[int, int]:
+    """(r_loc, c_loc): per-shard extents. Domains that do not divide
+    evenly are padded at the high end; the padding lies outside the
+    global domain and the step keeps it at zero (the reference's GPU
+    backend instead errors on such domains — PartialWorkGroupError,
+    data/src/concentration/gpu/shape.rs:141-164)."""
+    (r, c), (nr, nc) = shape, mesh_shape
+    return -(-r // nr), -(-c // nc)
 
 
-def overlap_engages(r_loc: int, tr: int, halo: int, chalo: int = 0,
-                    c_loc: int | None = None) -> bool:
-    """Whether sharded_run_blocks will ACTUALLY take the overlap split
-    for this geometry (the serialized fallback otherwise) — the one
-    definition of the engagement rule, shared with the autotuner so a
-    measured "overlap" candidate is guaranteed to run overlapped code:
-    >= 3 row tiles per shard and tr >= halo (correctness: the interior
-    slab must not reach the never-refreshed padding), plus a
-    4-column-halo-wide shard on 2-D meshes."""
-    if not (r_loc // tr >= 3 and tr >= halo):
-        return False
-    if chalo > 0:
-        return c_loc is not None and c_loc >= 4 * chalo
-    return True
+def mesh_viable(shape, nr: int, nc: int, depth: int) -> bool:
+    """Whether an (nr, nc) mesh can carry a ``depth``-deep halo on
+    ``shape``: each split axis needs shards at least ``depth`` deep."""
+    r_loc, c_loc = shard_extents(shape, (nr, nc))
+    return (nr == 1 or r_loc >= depth) and (nc == 1 or c_loc >= depth)
 
 
-def choose_mesh_cols(n: int, shape, min_rows: int = 8,
-                     min_cols: int = 128, bias: float = 0.8) -> int:
+def viable_mesh_cols(shape, n: int, depth: int) -> list[int]:
+    """Every divisor of ``n`` whose (rows, cols) factorization is
+    :func:`mesh_viable` on ``shape`` (possibly empty). The one viability
+    scan shared by :func:`choose_mesh_cols` and the backend selector."""
+    return [nc for nc in range(1, n + 1)
+            if n % nc == 0 and mesh_viable(shape, n // nc, nc, depth)]
+
+
+def choose_mesh_cols(n: int, shape, depth: int, bias: float = 0.8) -> int:
     """Mesh-column count for ``n`` devices on an (R, C) domain, chosen
-    by per-chip halo-exchange volume — the auto analog of the
+    by per-device halo-exchange volume — the auto analog of the
     reference's rayon split always cutting the longest axis first
-    (compute/parallel/src/lib.rs:107-114). For each (nr, nc)
-    factorization the dominant per-chip cost is
+    (compute/parallel/src/lib.rs:107-114). For each viable (nr, nc)
+    factorization the cost is
 
         cost = row_neighbors * ceil(C/nc) + col_neighbors * ceil(R/nr)
 
-    (an interior chip exchanges with 2 neighbors per >2-extent axis).
+    (an interior device exchanges with 2 neighbours per >2-extent axis).
     1-D row sharding wins ties and anything within ``1 - bias`` (2-D
-    meshes pay extra messages, corner traffic, and the column-halo
-    ring); shards narrower than ``min_cols`` columns or shorter than
-    ``min_rows`` rows are not viable (lane/sublane quanta)."""
+    meshes pay extra messages and the corner traffic); when 1-D is not
+    viable, the cheapest viable 2-D mesh wins outright, and with nothing
+    viable the answer is 1 (the backend then rejects the domain)."""
     r, c = shape
 
     def nb(extent: int) -> int:
         return 0 if extent == 1 else (1 if extent == 2 else 2)
 
-    cost_1d = nb(n) * c
-    # the 1-D baseline must pass its own viability rule: n 1-row-ish
-    # shards (< min_rows) burn most of every chip on masked padding —
-    # when a 2-D factorization IS viable, prefer it outright
-    viable_1d = n == 1 or -(-r // n) >= min_rows
-    best_nc = 1
-    best_cost = cost_1d if viable_1d else float("inf")
-    for nc in range(2, n + 1):
-        if n % nc:
-            continue
-        nr = n // nc
-        if -(-c // nc) < min_cols:
-            continue
-        if nr > 1 and -(-r // nr) < min_rows:
-            continue
-        cost = nb(nr) * -(-c // nc) + nb(nc) * -(-r // nr)
-        if cost < best_cost:
-            best_nc, best_cost = nc, cost
-    if not viable_1d:
-        return best_nc  # any viable 2-D beats a non-viable 1-D
-    # a 2-D mesh must beat 1-D by the bias margin, not merely tie
-    return best_nc if best_cost < bias * cost_1d else 1
+    viable = viable_mesh_cols(shape, n, depth)
+    if not viable:
+        return 1
+
+    def cost(nc: int) -> int:
+        r_loc, c_loc = shard_extents(shape, (n // nc, nc))
+        return nb(n // nc) * c_loc + nb(nc) * r_loc
+
+    best = min(viable, key=lambda nc: (cost(nc), nc))
+    if 1 not in viable or best == 1:
+        return best
+    return best if cost(best) < bias * cost(1) else 1
 
 
-def make_mesh_1d(n_devices: int | None = None) -> Mesh:
-    """Single-axis row mesh — the megakernel's in-kernel remote DMAs
-    address neighbors by per-axis mesh coordinates, so its mesh must
-    carry exactly the one axis the exchange runs over."""
-    devices = jax.devices()
-    n = n_devices or len(devices)
-    if n > len(devices):
-        raise ValueError(f"requested {n} devices, have {len(devices)}")
-    if devices[0].platform == "tpu" and n == len(devices):
-        # same ICI-adjacency layout as make_mesh: the megakernel's
-        # remote DMAs push to logical ids my±1, which must sit on
-        # neighboring links, not jax.devices() enumeration order
-        try:
-            from jax.experimental import mesh_utils
-
-            grid = mesh_utils.create_device_mesh((n,))
-            return Mesh(grid, (ROWS,))
-        except Exception:  # odd topologies: fall back to plain order
-            pass
-    return Mesh(np.asarray(devices[:n]), (ROWS,))
-
-
-def _exchange_rows(x, r_loc: int, halo: int):
-    """Fill the halo padding rows of a local block from row neighbors."""
-    top_halo, bot_halo = _exchange_start(x, r_loc, halo)
-    h = halo
-    return jax.lax.concatenate([top_halo, x[h : h + r_loc], bot_halo], 0)
-
-
-def _exchange_cols(x, c_loc: int, chalo: int):
-    """Fill the CHALO padding columns (incl. the row-halo rows, so corners
-    arrive from diagonal neighbors)."""
-    ch = chalo
-    west_halo, east_halo = _exchange_cols_start(x, c_loc, ch)
-    return jax.lax.concatenate([west_halo, x[:, ch : ch + c_loc], east_halo], 1)
-
-
-def _exchange_cols_start(x, c_loc: int, chalo: int):
-    """Issue the column-halo permutes WITHOUT consuming them: returns
-    the (west_halo, east_halo) arrivals (each ``x.rows x chalo``) so
-    callers can schedule independent work in between (2-D overlap)."""
-    ch = chalo
-    n = jax.lax.axis_size(COLS)
-    right = [(i, i + 1) for i in range(n - 1)]
-    left = [(i + 1, i) for i in range(n - 1)]
-    west = jax.lax.ppermute(x[:, ch + c_loc - ch : ch + c_loc], COLS, right)
-    east = jax.lax.ppermute(x[:, ch : ch + ch], COLS, left)
-    return west, east
-
-
-def _exchange_start(x, r_loc: int, halo: int):
-    """Issue the row-halo permutes WITHOUT consuming them: returns the
-    (top_halo, bot_halo) arrivals so callers can schedule independent
-    work between start and use (overlap mode)."""
-    h = halo
-    n = jax.lax.axis_size(ROWS)
+def _exchange(x, axis_name: str, axis: int, n: int, depth: int):
+    """Extend ``x`` by ``depth`` cells on both sides of ``axis`` with the
+    neighbours' edge cells (zeros at the ends of the mesh axis)."""
+    if n == 1:
+        pad = [(0, 0), (0, 0)]
+        pad[axis] = (depth, depth)
+        return jnp.pad(x, pad)
+    size = x.shape[axis]
     down = [(i, i + 1) for i in range(n - 1)]
     up = [(i + 1, i) for i in range(n - 1)]
-    top = jax.lax.ppermute(x[h + r_loc - h : h + r_loc], ROWS, down)
-    bot = jax.lax.ppermute(x[h : h + h], ROWS, up)
-    return top, bot
+    last = jax.lax.slice_in_dim(x, size - depth, size, axis=axis)
+    first = jax.lax.slice_in_dim(x, 0, depth, axis=axis)
+    before = jax.lax.ppermute(last, axis_name, down)
+    after = jax.lax.ppermute(first, axis_name, up)
+    return jax.lax.concatenate([before, x, after], axis)
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("mesh", "r_total", "c_total", "steps", "tr", "params",
-                     "boundary", "halo", "chalo", "interpret",
-                     "vmem_limit_bytes", "overlap", "dt_is_one"),
+    static_argnames=("mesh", "shape", "steps", "params", "boundary"),
     donate_argnames=("u", "v"),
 )
-def sharded_run_blocks(
-    u, v, n_blocks, reaction=None, *,
-    mesh: Mesh, r_total: int, steps: int, tr: int,
-    params: Parameters, boundary: str, c_total: int | None = None,
-    halo: int = ps.HALO, chalo: int = 0, interpret: bool = False,
-    vmem_limit_bytes: int | None = None, overlap: bool = False,
-    dt_is_one: bool = False,
-):
-    """Run ``n_blocks`` K-step kernel blocks on mesh-sharded state.
+def sharded_run_blocks(u, v, n_blocks, *, mesh: Mesh, shape: Tuple[int, int],
+                       steps: int, params: Parameters, boundary: str):
+    """Run ``n_blocks`` blocks of ``steps`` steps on mesh-sharded state.
 
-    State arrays have shape (n_row_shards, n_col_shards, HALO + R_loc +
-    HALO, CHALO + C_loc + CHALO), sharded on the first two axes. Between
-    blocks, halo rows (and columns on 2-D meshes) are exchanged over ICI.
-
-    ``overlap=True`` (1-D meshes with >= 3 row tiles per shard) splits the
-    per-shard kernel into interior tiles + two edge slabs so the interior
-    — which reads no exchanged data — carries no dependency on the
-    ppermutes and XLA's latency-hiding scheduler can run it while the
-    exchange is in flight (the analog of the reference's fork-join split
-    keeping all rayon workers busy, compute/parallel/src/lib.rs:100-120).
-    Results agree with the serialized path to f32 round-off (same windows
-    and kernel ops; XLA may fuse the two program structures differently).
-    Trade-off, measured on v5e: each extra pallas_call costs
-    ~0.6 ms fixed, while a K-deep row halo is only ~100s of KB over ICI
-    (~µs), so overlap pays on high-latency links (DCN/multi-host slices),
-    not single-slice ICI — hence opt-in.
-    """
-    hp = u.shape[2]
-    wp = u.shape[3]
-    r_loc = hp - 2 * halo
-    c_loc = wp - 2 * chalo
-    if dict(mesh.shape).get(COLS, 1) > 1 and chalo <= 0:
-        # shard_state enforces this for its callers; enforce it HERE too,
-        # because without the column-halo ring there is no inter-shard
-        # column exchange and every shard-column seam silently computes
-        # zero-boundary physics instead of erroring
+    State arrays have shape (n_row_shards, n_col_shards, r_loc, c_loc),
+    sharded on the first two axes (:func:`shard_state`). Each block
+    exchanges a ``steps``-deep halo, then takes ``steps`` slab steps."""
+    nr, nc = mesh.devices.shape
+    r_loc, c_loc = u.shape[2], u.shape[3]
+    if (nr > 1 and r_loc < steps) or (nc > 1 and c_loc < steps):
         raise ValueError(
-            "a multi-column mesh needs chalo > 0 (the column-halo ring "
-            "carries the inter-shard column exchange)"
-        )
-    if c_total is None:
-        c_total = c_loc
-    if vmem_limit_bytes is None:
-        # the Mosaic default (16M) OOMs at useful tiles on hardware.
-        # Always budget at 4 B/element: the kernel upcasts bf16 windows to
-        # f32 in VMEM, so live temporaries are f32 regardless of storage
-        vmem_limit_bytes = ps.choose_vmem_limit(tr, halo, wp, 4, boundary)
-
-    # tr >= halo is a correctness requirement, not a tuning choice: the
-    # interior slab a[tr : r_loc - tr + 2*halo] reaches into the carry's
-    # padding rows at BOTH ends when tr < halo, and overlap mode never
-    # refreshes that padding (put() writes interior rows only; exchange
-    # arrivals feed the edge slabs directly) — those rows would be stale
-    # zeros standing in for neighbor data. Fall back to the serialized
-    # exchange like the other structural gates below. 2-D meshes take
-    # the five-slab split (body_overlap2d) when the shard is wide enough
-    # for distinct left/right column slabs.
-    use_overlap = (
-        overlap and chalo == 0 and overlap_engages(r_loc, tr, halo)
-    )
-    use_overlap2d = (
-        overlap and chalo > 0
-        and overlap_engages(r_loc, tr, halo, chalo, c_loc)
-    )
-
-    def local(u, v, n_blocks, *maybe_reaction):
-        u, v = u[0, 0], v[0, 0]
-        reaction = maybe_reaction[0] if maybe_reaction else None
-        row_start = jax.lax.axis_index(ROWS).astype(jnp.int32) * r_loc
-        origin = row_start - halo
-        col_start = jax.lax.axis_index(COLS).astype(jnp.int32) * c_loc
-        origin_c = col_start - chalo
-        kern = dict(
-            steps=steps, tr=tr, params=params, boundary=boundary,
-            halo=halo, interpret=interpret,
-            zero_padding=False, vmem_limit_bytes=vmem_limit_bytes,
-            dt_is_one=dt_is_one,
+            f"{r_loc}x{c_loc} shards cannot carry a {steps}-deep halo "
+            f"on a {nr}x{nc} mesh"
         )
 
-        def body(_, carry):
-            a, b = carry
-            a = _exchange_rows(a, r_loc, halo)
-            b = _exchange_rows(b, r_loc, halo)
-            if chalo:
-                a = _exchange_cols(a, c_loc, chalo)
-                b = _exchange_cols(b, c_loc, chalo)
-            # padding is rewritten by the exchange each block, so the
-            # kernel can skip its own padding re-zero
-            return ps.multistep_impl(
-                a, b, origin, r_total, origin_c, c_total, reaction,
-                chalo=chalo, **kern,
+    def local(u, v, n_blocks):
+        row_start = jax.lax.axis_index(ROWS) * r_loc
+        col_start = jax.lax.axis_index(COLS) * c_loc
+
+        def block(_, uv):
+            a, b = (
+                _exchange(_exchange(x, ROWS, 0, nr, steps), COLS, 1, nc, steps)
+                for x in uv
             )
+            for s in range(steps):
+                ring = steps - 1 - s  # halo rings still needed after step s
+                a, b = stencil.slab_step(a, b, row_start - ring,
+                                         col_start - ring, shape, params,
+                                         boundary)
+            return a, b
 
-        def body_overlap(_, carry):
-            a, b = carry
-            h = halo
-            # 1) start the permutes...
-            a_top, a_bot = _exchange_start(a, r_loc, h)
-            b_top, b_bot = _exchange_start(b, r_loc, h)
-            # 2) ...interior tiles depend only on local rows, so this
-            # kernel call is schedulable while the exchange is in flight
-            # (its "halo" input rows are the real rows bordering the slab)
-            am, bm = ps.multistep_impl(
-                a[tr : r_loc - tr + 2 * h], b[tr : r_loc - tr + 2 * h],
-                origin + tr, r_total, 0, c_total, reaction, **kern,
-            )
-            # 3) edge slabs consume the arrivals
-            at, bt = ps.multistep_impl(
-                jnp.concatenate([a_top, a[h : h + tr + h]], 0),
-                jnp.concatenate([b_top, b[h : h + tr + h]], 0),
-                origin, r_total, 0, c_total, reaction, **kern,
-            )
-            lo = h + r_loc - tr - h
-            ab, bb = ps.multistep_impl(
-                jnp.concatenate([a[lo : h + r_loc], a_bot], 0),
-                jnp.concatenate([b[lo : h + r_loc], b_bot], 0),
-                origin + (r_loc - tr), r_total, 0, c_total, reaction,
-                **kern,
-            )
-            # 4) assemble in place (donated carry: in-place slab writes)
-            def put(x, top, mid, bot):
-                x = jax.lax.dynamic_update_slice(x, top[h : h + tr], (h, 0))
-                x = jax.lax.dynamic_update_slice(
-                    x, mid[h : h + r_loc - 2 * tr], (h + tr, 0)
-                )
-                return jax.lax.dynamic_update_slice(
-                    x, bot[h : h + tr], (h + r_loc - tr, 0)
-                )
-
-            return put(a, at, am, ab), put(b, bt, bm, bb)
-
-        def body_overlap2d(_, carry):
-            """Five-slab interior/edge split for 2-D meshes (VERDICT r3
-            #7): the interior slab — trimmed one CHALO ring of rows AND
-            columns away from every exchanged cell — carries no
-            dependency on any ppermute, so XLA can run it while all
-            twelve arrivals (rows, interior-row columns, and the corner
-            columns of the arrived row halos — the overlap form of the
-            two-phase corner trick) are in flight. Left/right slabs
-            consume the column arrivals; top/bottom slabs consume rows
-            plus corners. Same windows and kernel ops as the serialized
-            two-phase path, so results agree to f32 round-off."""
-            a, b = carry
-            h, ch = halo, chalo
-            W = wp
-            ri = slice(tr, r_loc - tr + 2 * h)
-            ri0, ri1 = tr - h, r_loc - tr + h  # ri in interior-row coords
-
-            def starts(x):
-                top, bot = _exchange_start(x, r_loc, h)
-                wst, est = _exchange_cols_start(x[h : h + r_loc], c_loc, ch)
-                # corners: the column permute of the arrived row halos —
-                # the up-left diagonal's data lands in the top slab's
-                # west ring, exactly like phase 2 of the serialized path
-                twst, test = _exchange_cols_start(top, c_loc, ch)
-                bwst, best_ = _exchange_cols_start(bot, c_loc, ch)
-                return dict(top=top, bot=bot, wst=wst, est=est,
-                            twst=twst, test=test, bwst=bwst, best=best_)
-
-            sa, sb = starts(a), starts(b)
-
-            def interior(x):
-                return x[ri, ch : W - ch]
-
-            am, bm = ps.multistep_impl(
-                interior(a), interior(b), origin + tr, r_total,
-                origin_c + ch, c_total, reaction, chalo=ch, **kern,
-            )
-
-            def lr(x, s, side):
-                rows = x[ri]
-                if side == "left":
-                    return jnp.concatenate(
-                        [s["wst"][ri0:ri1], rows[:, ch : 3 * ch]], 1)
-                return jnp.concatenate(
-                    [rows[:, W - 3 * ch : W - ch], s["est"][ri0:ri1]], 1)
-
-            al, bl = ps.multistep_impl(
-                lr(a, sa, "left"), lr(b, sb, "left"),
-                origin + tr, r_total, origin_c, c_total, reaction,
-                chalo=ch, **kern,
-            )
-            ar, br = ps.multistep_impl(
-                lr(a, sa, "right"), lr(b, sb, "right"),
-                origin + tr, r_total, origin_c + (W - 3 * ch), c_total,
-                reaction, chalo=ch, **kern,
-            )
-
-            def tb(x, s, side):
-                if side == "top":
-                    halo_rows = jnp.concatenate(
-                        [s["twst"], s["top"][:, ch : W - ch], s["test"]], 1)
-                    body_rows = jnp.concatenate(
-                        [s["wst"][: tr + h], x[h : h + tr + h, ch : W - ch],
-                         s["est"][: tr + h]], 1)
-                    return jnp.concatenate([halo_rows, body_rows], 0)
-                halo_rows = jnp.concatenate(
-                    [s["bwst"], s["bot"][:, ch : W - ch], s["best"]], 1)
-                lo = h + r_loc - tr - h
-                body_rows = jnp.concatenate(
-                    [s["wst"][r_loc - tr - h :], x[lo : h + r_loc, ch : W - ch],
-                     s["est"][r_loc - tr - h :]], 1)
-                return jnp.concatenate([body_rows, halo_rows], 0)
-
-            at, bt = ps.multistep_impl(
-                tb(a, sa, "top"), tb(b, sb, "top"),
-                origin, r_total, origin_c, c_total, reaction,
-                chalo=ch, **kern,
-            )
-            ab_, bb_ = ps.multistep_impl(
-                tb(a, sa, "bot"), tb(b, sb, "bot"),
-                origin + (r_loc - tr), r_total, origin_c, c_total,
-                reaction, chalo=ch, **kern,
-            )
-
-            def put(x, top, left, mid, right, bot):
-                x = jax.lax.dynamic_update_slice(
-                    x, top[h : h + tr, ch : W - ch], (h, ch))
-                x = jax.lax.dynamic_update_slice(
-                    x, left[h : h + r_loc - 2 * tr, ch : 2 * ch],
-                    (h + tr, ch))
-                x = jax.lax.dynamic_update_slice(
-                    x, mid[h : h + r_loc - 2 * tr, ch : W - 3 * ch],
-                    (h + tr, 2 * ch))
-                x = jax.lax.dynamic_update_slice(
-                    x, right[h : h + r_loc - 2 * tr, ch : 2 * ch],
-                    (h + tr, W - 2 * ch))
-                return jax.lax.dynamic_update_slice(
-                    x, bot[h : h + tr, ch : W - ch], (h + r_loc - tr, ch))
-
-            return (put(a, at, al, am, ar, ab_),
-                    put(b, bt, bl, bm, br, bb_))
-
-        body_fn = body
-        if use_overlap2d:
-            body_fn = body_overlap2d
-        elif use_overlap:
-            body_fn = body_overlap
-        out = jax.lax.fori_loop(0, n_blocks, body_fn, (u, v))
+        out = jax.lax.fori_loop(0, n_blocks, block, (u[0, 0], v[0, 0]))
         return tuple(x[None, None] for x in out)
 
     spec = P(ROWS, COLS, None, None)
-    extra = () if reaction is None else (jnp.asarray(reaction),)
     return jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(spec, spec, P()) + tuple(P() for _ in extra),
-        out_specs=(spec, spec),
-        # pallas_call inside shard_map cannot declare varying-mesh-axes
-        # metadata on its outputs yet; skip the vma check.
-        check_vma=False,
-    )(u, v, n_blocks, *extra)
+        local, mesh=mesh, in_specs=(spec, spec, P()), out_specs=(spec, spec),
+    )(u, v, n_blocks)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "r_total", "steps", "tr", "params", "boundary",
-                     "halo", "interpret", "vmem_limit_bytes", "dt_is_one",
-                     "tc", "c_dom"),
-    donate_argnames=("u_pairs", "v_pairs"),
-)
-def sharded_mega_run(
-    u_pairs, v_pairs, n_blocks, reaction=None, *,
-    mesh: Mesh, r_total: int, steps: int, tr: int,
-    params: Parameters, boundary: str,
-    halo: int = 8, interpret=False,
-    vmem_limit_bytes: int | None = None, dt_is_one: bool = False,
-    tc: int | None = None, c_dom: int | None = None,
-):
-    """Run the multi-chip megakernel: ONE kernel launch per chip for all
-    ``n_blocks`` K-step time blocks, halo exchange via in-kernel remote
-    DMAs over ICI (ops/megakernel.py ``n_shards > 1``). 1-D row meshes
-    only. State is the mega pair layout per shard:
-    ``(n_shards, 2, halo + Rp_loc + halo, C)`` sharded on axis 0
-    (``tc``: column-tiled windows for wide slabs — pairs from
-    ``mega_shard_state(..., tc=tc)``, ``c_dom`` = the true width; the
-    exchange itself is column-agnostic, it pushes full-width row slabs).
-
-    Versus :func:`sharded_run_blocks` (ppermute between ``pallas_call``
-    blocks), this erases the per-block fixed launch cost (~0.42 ms,
-    BENCHMARKS.md) AND overlaps the exchange with interior row blocks
-    natively. Slot 0's halo rows are pre-exchanged here once per call
-    with a plain ppermute — every later exchange happens inside the
-    kernel. CPU validation: TPU interpret mode simulates the mesh,
-    remote DMAs and semaphores, including a vector-clock race detector
-    (tests/test_mega_sharded.py)."""
-    from ..ops import megakernel as mk
-
-    n_sh = mesh.devices.shape[0]
-    if mesh.devices.ndim > 1 and mesh.devices.shape[1] != 1:
-        raise ValueError("sharded megakernel supports 1-D row meshes only")
-    if interpret is True:
-        # plain pallas interpret cannot simulate cross-chip DMA; the TPU
-        # interpret mode can (and also race-checks the handshake)
-        from jax.experimental.pallas import tpu as pltpu
-
-        interpret = pltpu.InterpretParams()
-
-    def local(u_pairs, v_pairs, n_blocks, *maybe_reaction):
-        u_pair, v_pair = u_pairs[0], v_pairs[0]
-        reaction = maybe_reaction[0] if maybe_reaction else None
-        my = jax.lax.axis_index(ROWS).astype(jnp.int32)
-        h = halo
-        rp = u_pair.shape[1] - 2 * h
-        if n_sh > 1:
-            # slot 0 enters with unknown halos (fresh from the host, or
-            # the windowed engine); one ppermute round makes them valid
-            # for the kernel's first time block
-            u0 = _exchange_rows(u_pair[0], rp, h)
-            v0 = _exchange_rows(v_pair[0], rp, h)
-            u_pair = u_pair.at[0].set(u0)
-            v_pair = v_pair.at[0].set(v0)
-        u_pair, v_pair = mk.megastep_impl(
-            u_pair, v_pair, n_blocks, reaction,
-            steps=steps, tr=tr, r=r_total, params=params,
-            boundary=boundary, halo=h, interpret=interpret,
-            vmem_limit_bytes=vmem_limit_bytes, dt_is_one=dt_is_one,
-            n_shards=n_sh, my_shard=my if n_sh > 1 else None,
-            tc=tc, c_dom=c_dom,
-        )
-        return u_pair[None], v_pair[None]
-
-    spec = P(ROWS, None, None, None)
-    extra = () if reaction is None else (jnp.asarray(reaction),)
-    return jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(spec, spec, P()) + tuple(P() for _ in extra),
-        out_specs=(spec, spec),
-        check_vma=False,
-    )(u_pairs, v_pairs, n_blocks, *extra)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("mesh", "r_total", "c_total", "steps", "tr", "tc",
-                     "params", "boundary", "halo", "interpret",
-                     "vmem_limit_bytes", "dt_is_one"),
-    donate_argnames=("u_pairs", "v_pairs"),
-)
-def sharded_mega_run2d(
-    u_pairs, v_pairs, n_blocks, reaction=None, *,
-    mesh: Mesh, r_total: int, c_total: int, steps: int, tr: int, tc: int,
-    params: Parameters, boundary: str,
-    halo: int = 8, interpret=False,
-    vmem_limit_bytes: int | None = None, dt_is_one: bool = False,
-):
-    """The 2-D (rows x cols) mesh megakernel: each chip owns a (row,
-    column) tile, windows are column-tiled (the 128-lane column-halo
-    ring doubles as the mesh column halo), and the in-kernel exchange
-    pushes 8 directions — 4 cardinal + 4 corner remote DMAs — with an
-    entry-gated per-slot handshake (ops/megakernel.py
-    ``n_shard_cols > 1``). State is the column-tiled mega pair layout
-    per shard: ``(nr, nc, 2, halo + Rp_loc + halo, CHALO + Cp_loc +
-    CHALO)`` sharded on the first two axes (``mega_shard_state2d``).
-    ``c_total`` = the true global width. Slot 0's halo frame (rows,
-    ring columns, corners) is pre-exchanged here once per call with the
-    classic two-phase ppermute (rows first, then columns including the
-    fresh halo rows — parallel/halo.py module docstring); every later
-    exchange happens inside the kernel."""
-    from ..ops import megakernel as mk
-
+def shard_state(u: np.ndarray, v: np.ndarray, mesh: Mesh
+                ) -> Tuple[jax.Array, jax.Array]:
+    """Pack (R, C) host state into (nr, nc, r_loc, c_loc) blocks on the
+    mesh, zero-padded at the high end."""
     nr, nc = mesh.devices.shape
-    if interpret is True:
-        from jax.experimental.pallas import tpu as pltpu
-
-        interpret = pltpu.InterpretParams()
-
-    def local(u_pairs, v_pairs, n_blocks, *maybe_reaction):
-        u_pair, v_pair = u_pairs[0, 0], v_pairs[0, 0]
-        reaction = maybe_reaction[0] if maybe_reaction else None
-        my = jax.lax.axis_index(ROWS).astype(jnp.int32)
-        myc = jax.lax.axis_index(COLS).astype(jnp.int32)
-        h, ch = halo, ps.COL_HALO
-        rp = u_pair.shape[1] - 2 * h
-        cp = u_pair.shape[2] - 2 * ch
-        # slot 0 enters with unknown halos; one two-phase exchange
-        # (rows across the full width, then columns including the fresh
-        # halo rows, delivering the corners) makes the whole halo frame
-        # valid for the kernel's first time block
-        u0, v0 = u_pair[0], v_pair[0]
-        if nr > 1:
-            u0 = _exchange_rows(u0, rp, h)
-            v0 = _exchange_rows(v0, rp, h)
-        u0 = _exchange_cols(u0, cp, ch)
-        v0 = _exchange_cols(v0, cp, ch)
-        u_pair = u_pair.at[0].set(u0)
-        v_pair = v_pair.at[0].set(v0)
-        u_pair, v_pair = mk.megastep_impl(
-            u_pair, v_pair, n_blocks, reaction,
-            steps=steps, tr=tr, r=r_total, params=params,
-            boundary=boundary, halo=h, interpret=interpret,
-            vmem_limit_bytes=vmem_limit_bytes, dt_is_one=dt_is_one,
-            n_shards=nr, my_shard=my, tc=tc, c_dom=c_total,
-            n_shard_cols=nc, my_shard_col=myc,
-        )
-        return u_pair[None, None], v_pair[None, None]
-
-    spec = P(ROWS, COLS, None, None, None)
-    extra = () if reaction is None else (jnp.asarray(reaction),)
-    return jax.shard_map(
-        local,
-        mesh=mesh,
-        in_specs=(spec, spec, P()) + tuple(P() for _ in extra),
-        out_specs=(spec, spec),
-        check_vma=False,
-    )(u_pairs, v_pairs, n_blocks, *extra)
-
-
-def _tile_rounded(extent: int, n_shards: int, tile: int) -> int:
-    """ceil(ceil(extent / n_shards) / tile) * tile — the per-shard
-    interior extent, padded so every shard is tile-aligned. The ONE
-    definition: mega_shard_state/mega_shard_state2d/shard_extents must
-    agree with each other or shard geometry silently diverges."""
-    per = -(-extent // n_shards)
-    return -(-per // tile) * tile
-
-
-def mega_shard_state2d(
-    u: np.ndarray, v: np.ndarray, mesh: Mesh, tr: int, tc: int,
-    halo: int = 8, dtype=np.float32,
-) -> Tuple[jax.Array, jax.Array, int, int]:
-    """Pack (R, C) host state into per-shard column-tiled megakernel
-    pairs ``(nr, nc, 2, halo + Rp_loc + halo, CHALO + Cp_loc + CHALO)``
-    on a (rows, cols) mesh, sharded on the first two axes. Returns
-    (u_pairs, v_pairs, r_loc, c_loc)."""
-
-    r, c = u.shape
-    nr, nc = mesh.devices.shape
-    r_loc = _tile_rounded(r, nr, tr)
-    c_loc = _tile_rounded(c, nc, tc)
-    h, ch = halo, ps.COL_HALO
+    r_loc, c_loc = shard_extents(u.shape, (nr, nc))
+    sharding = NamedSharding(mesh, P(ROWS, COLS, None, None))
     out = []
     for x in (u, v):
-        xp = np.zeros((nr * r_loc, nc * c_loc), dtype=dtype)
-        xp[:r, :c] = x.astype(dtype)
-        tiled = xp.reshape(nr, r_loc, nc, c_loc).transpose(0, 2, 1, 3)
-        blocks = np.zeros(
-            (nr, nc, 2, h + r_loc + h, ch + c_loc + ch), dtype=dtype
-        )
-        blocks[:, :, 0, h : h + r_loc, ch : ch + c_loc] = tiled
-        out.append(jax.device_put(
-            blocks, NamedSharding(mesh, P(ROWS, COLS, None, None, None))
-        ))
-    return out[0], out[1], r_loc, c_loc
+        xp = np.zeros((nr * r_loc, nc * c_loc), dtype=np.float32)
+        xp[: x.shape[0], : x.shape[1]] = x
+        blocks = xp.reshape(nr, r_loc, nc, c_loc).transpose(0, 2, 1, 3)
+        out.append(jax.device_put(blocks, sharding))
+    return out[0], out[1]
 
 
-def mega_unshard_result2d(pairs, shape, halo: int = 8) -> jax.Array:
-    """Interior cells of slot 0 across a 2-D mesh of column-tiled mega
-    pairs, reassembled and cropped to (R, C)."""
-
+def unshard_result(blocks, shape) -> jax.Array:
+    """All shards reassembled and cropped to (R, C)."""
     r, c = shape
-    nr, nc = pairs.shape[0], pairs.shape[1]
-    h, ch = halo, ps.COL_HALO
-    r_loc = pairs.shape[3] - 2 * h
-    c_loc = pairs.shape[4] - 2 * ch
-    interior = pairs[:, :, 0, h : h + r_loc, ch : ch + c_loc]
-    full = interior.transpose(0, 2, 1, 3).reshape(nr * r_loc, nc * c_loc)
-    return full[:r, :c]
-
-
-def mega_shard_state(
-    u: np.ndarray, v: np.ndarray, mesh: Mesh, tr: int, halo: int = 8,
-    tc: int | None = None, dtype=np.float32,
-) -> Tuple[jax.Array, jax.Array, int]:
-    """Pack (R, C) host state into per-shard megakernel HBM pairs
-    ``(n_shards, 2, halo + Rp_loc + halo, C)`` on a 1-D row mesh
-    (column-tiled: last dim ``chalo + Cp + chalo``, Cp the tc-rounded
-    width). Slot 0 holds the state; halos/padding start zero (the kernel
-    sanitizes out-of-domain cells on load and the driver pre-exchanges
-    live halos). ``dtype`` selects the storage precision (bfloat16 = the
-    opt-in fast mode, like ``mega_pad_state``; compute stays f32)."""
-
-    r, c = u.shape
-    n_sh = mesh.devices.shape[0]
-    r_loc = _tile_rounded(r, n_sh, tr)
-    h = halo
-    chalo = ps.COL_HALO if tc is not None else 0
-    cp = c if tc is None else -(-c // tc) * tc
-    out = []
-    for x in (u, v):
-        xp = np.zeros((n_sh * r_loc, cp + 2 * chalo), dtype=dtype)
-        xp[:r, chalo : chalo + c] = x.astype(dtype)
-        blocks = np.zeros(
-            (n_sh, 2, h + r_loc + h, cp + 2 * chalo), dtype=dtype
-        )
-        blocks[:, 0, h : h + r_loc] = xp.reshape(n_sh, r_loc, -1)
-        out.append(jax.device_put(
-            blocks, NamedSharding(mesh, P(ROWS, None, None, None))
-        ))
-    return out[0], out[1], r_loc
-
-
-def mega_unshard_result(pairs, shape, halo: int = 8,
-                        chalo: int = 0) -> jax.Array:
-    """Interior rows of slot 0 across shards, cropped to (R, C)
-    (column-tiled pairs: skip the ``chalo`` column-halo ring)."""
-    r, c = shape
-    h = halo
-    r_loc = pairs.shape[2] - 2 * h
-    interior = pairs[:, 0, h : h + r_loc, chalo : chalo + c]
-    return interior.reshape(pairs.shape[0] * r_loc, c)[:r, :c]
-
-
-def shard_extents(shape, mesh: Mesh, tr: int) -> Tuple[int, int]:
-    """(r_loc, c_loc): per-shard interior extents, padded up so that every
-    shard is tile-aligned. Arbitrary domain sizes work: the appended rows/
-    columns live past the true domain extent and the kernel's global-index
-    masking keeps them at zero (the reference's GPU backend instead errors
-    on non-multiple domains — PartialWorkGroupError,
-    data/src/concentration/gpu/shape.rs:141-164)."""
-    r, c = shape
-    nr, nc = mesh.devices.shape
-    r_loc = _tile_rounded(r, nr, tr)
-    c_loc = -(-c // nc)
-    return r_loc, c_loc
-
-
-def shard_state(
-    u: np.ndarray, v: np.ndarray, mesh: Mesh, tr: int, chalo: int = 0,
-    halo: int = ps.HALO, dtype=np.float32,
-) -> Tuple[jax.Array, jax.Array, int]:
-    """Pack (R, C) host state into per-shard padded blocks on the mesh."""
-    r, c = u.shape
-    nr, nc = mesh.devices.shape
-    if nc > 1 and chalo == 0:
-        raise ValueError("2-D meshes require column halos (chalo > 0)")
-    r_loc, c_loc = shard_extents((r, c), mesh, tr)
-    h, ch = halo, chalo
-    out = []
-    for x in (u, v):
-        xp = np.zeros((nr * r_loc, nc * c_loc), dtype=dtype)
-        xp[:r, :c] = x.astype(dtype)
-        tiled = xp.reshape(nr, r_loc, nc, c_loc).transpose(0, 2, 1, 3)
-        blocks = np.zeros(
-            (nr, nc, h + r_loc + h, ch + c_loc + ch), dtype=dtype
-        )
-        blocks[:, :, h : h + r_loc, ch : ch + c_loc] = tiled
-        out.append(
-            jax.device_put(
-                blocks, NamedSharding(mesh, P(ROWS, COLS, None, None))
-            )
-        )
-    return out[0], out[1], r_loc
-
-
-def unshard_result(blocks, shape, chalo: int = 0,
-                   halo: int = ps.HALO) -> jax.Array:
-    """Interior cells of all shards, reassembled and cropped to (R, C)."""
-    r, c = shape
-    nr, nc = blocks.shape[0], blocks.shape[1]
-    h, ch = halo, chalo
-    r_loc = blocks.shape[2] - 2 * h
-    c_loc = blocks.shape[3] - 2 * ch
-    interior = blocks[:, :, h : h + r_loc, ch : ch + c_loc]
-    full = interior.transpose(0, 2, 1, 3).reshape(nr * r_loc, nc * c_loc)
+    nr, nc, r_loc, c_loc = blocks.shape
+    full = blocks.transpose(0, 2, 1, 3).reshape(nr * r_loc, nc * c_loc)
     return full[:r, :c]

@@ -1,6 +1,6 @@
 """Simulation parameters and stencil weights.
 
-TPU-native re-design of the reference's ``data`` crate parameter model
+JAX re-design of the reference's ``data`` crate parameter model
 (reference: ``data/src/parameters.rs:15-33`` for the parameter set,
 ``:90-123`` for the four selectable stencils, ``:57-63`` for corrected
 weights, ``:67-69`` for the ``-(f+k)`` prefactor).
@@ -172,17 +172,17 @@ class Parameters:
                 return name
         return "custom"
 
-    # -- separable decomposition (TPU fast path) -----------------------------
+    # -- separable decomposition (fast path) ----------------------------------
 
     def separable_plan(self):
-        """Decompose the corrected stencil for the VPU fast path.
+        """Decompose the corrected stencil for the separable fast path.
 
         For symmetric stencils of the form ``[[a,b,a],[b,c,b],[a,b,a]]`` with
         ``a > 0``, the corrected-weight convolution can be written as a
         separable pass ``conv_h(rows) . conv_h(cols) - alpha * center`` with
         ``h = [x, y, x]``, ``x = sqrt(a)``, ``y = b / x`` and
         ``alpha = y*y - c + sum(w)``. This cuts the per-cell shift count
-        roughly in half versus a direct 9-point sum (the TPU analog of the
+        roughly in half versus a direct 9-point sum (the analog of the
         reference's unrolled mul_add ladder, compute/autovec/src/lib.rs:87-106).
 
         Returns ``("separable", h, alpha)`` or ``("direct", corrected)``.

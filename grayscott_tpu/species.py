@@ -1,25 +1,23 @@
 """Double-buffered U/V species state.
 
-TPU-native re-design of the reference's ``Species``/``Evolving``/
+JAX re-design of the reference's ``Species``/``Evolving``/
 ``Concentration`` data model (``data/src/concentration/mod.rs:17-301``).
 
 Design mapping:
 
 - The reference keeps explicit in/out buffer pairs and a ``flip()`` that
-  swaps them (``Evolving`` at ``concentration/mod.rs:140-187``). On TPU the
+  swaps them (``Evolving`` at ``concentration/mod.rs:140-187``). Here the
   double buffer lives *inside* XLA: step functions are functional
   ``(u, v) -> (u', v')`` and buffer donation makes the compiler reuse the
-  input HBM buffers in place, which is the same memory behavior without a
+  input device buffers in place, which is the same memory behavior without a
   host-visible buffer swap. ``Species`` therefore stores the *input* state
   (what the reference calls ``in_u``/``in_v`` after a flip).
 
 - The reference's per-backend storage layouts (``ScalarConcentration``,
   ``SIMDConcentration`` with zero-padded edges, ``ImageConcentration``) map
   to per-backend ``storage`` pytrees here: plain ``(R, C)`` arrays for the
-  jnp backends, halo-padded ``(R + 2H, C)`` buffer pairs for the Pallas
-  backend (the analog of SIMDConcentration's zero edge padding,
-  ``data/src/concentration/simd/mod.rs:42-47``), and row-sharded global
-  arrays for the multi-chip backend.
+  single-device backends and ``(rows, cols)``-mesh-sharded tile arrays for
+  the multi-device backend.
 
 - "The simulation result is V's current input concentration"
   (``concentration/mod.rs:94-103``) maps to :meth:`Species.result`.

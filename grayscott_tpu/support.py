@@ -1,65 +1,36 @@
-"""The kernel-engine support matrix: one user-facing surface.
+"""The backend support matrix: one user-facing surface.
 
-Engine x boundary x dtype x layout combinations and their status —
-the single source the README table and the CLI ``--help`` epilog render
-from, and the contract tests/test_support.py sweeps. Every ``rejected``
-cell raises :class:`grayscott_tpu.errors.UnsupportedConfigError` (a
-``ValueError`` subclass) at construction or storage-build time; nothing
-silently falls back when the user PINNED the combination (auto modes may
-still decline a layout heuristically — that is selection, not
-rejection).
+Backend x boundary x mesh combinations and their status — the single
+source the README table and the CLI ``--help`` epilog render from, and
+the contract tests/test_support.py sweeps. Every ``rejected`` cell raises
+:class:`grayscott_tpu.errors.UnsupportedConfigError` (a ``ValueError``
+subclass) at construction or storage-build time; nothing silently falls
+back to another backend.
 
 Reference analog: the backend feature matrix implied by the Cargo
 feature graph (compute/selector/src/lib.rs:4-59), where unsupported
 combinations fail at compile time. Here it is a runtime matrix, so it
-must be documented and enforced uniformly (VERDICT r2 weak #7).
+must be documented and enforced uniformly.
 """
 
 from __future__ import annotations
 
-#: (combo, status, note). status: "ok" = supported; "auto" = applied
-#: only when heuristics/measured verdicts select it; "rejected" =
-#: UnsupportedConfigError when pinned.
+#: (combo, status, note). status: "ok" = supported; "rejected" =
+#: UnsupportedConfigError.
 MATRIX: tuple[tuple[str, str, str], ...] = (
-    ("engine=windowed x any boundary x f32/bf16", "ok",
-     "the per-K-block pipeline; column-tiles very wide domains"),
-    ("engine=mega x any boundary x f32/bf16", "ok",
-     "whole-run kernel; needs windows under the VMEM/compile ceilings "
-     "(rejected otherwise)"),
-    ("resident x f32 x small domains", "auto",
-     "'on' forces; rejected with bf16, a pinned fold, or an engine pin"),
-    ("pack x zero boundary x f32 x separable stencil", "auto",
-     "'on' forces; rejected with naive boundary, bf16, fold, or column "
-     "tiles"),
-    ("fold x f32 x narrow domains", "auto",
-     "int pins; rejected with bf16 or column tiles; naive fold needs "
-     "width % 128 == 0 on hardware"),
-    ("naive_fix=store x naive x mega/windowed full-width", "ok",
-     "rejected with zero boundary, pack, column tiles, sharding, or "
-     "mega_specialize (ulp-budget mode, not bit-frozen)"),
-    ("naive_fix=slice x naive x any engine", "ok",
-     "top-strip taps from the laplacian's shifted tensors, +4.1%/+5.1% "
-     "on-chip at 4096^2/16384^2 (ulp-budget mode, not bit-frozen; "
-     "rejected with zero boundary; excludes naive_fix=store)"),
-    ("naive_fold x naive x mega/windowed", "ok",
-     "opt-in folded naive reaction (ulp-budget); rejected with zero "
-     "boundary, naive_fix=store, lane-fold pins, or forced residency"),
-    ("mega_specialize x full-width two-species", "ok",
-     "opt-in ulp-budget mode; silently inert for column-tiled/packed "
-     "layouts, rejected with naive_fix=store"),
-    ("mega_depth 2..8 x seamless single-chip", "ok",
-     "falls back to the double buffer when sharded or too few blocks"),
-    ("sharded windowed x 1-D/2-D mesh x f32/bf16", "ok",
-     "--sharded-overlap: windowed engine (1-D three-slab / 2-D "
-     "five-slab split; serialized fallback on small shards)"),
-    ("sharded mega x 1-D mesh", "ok",
-     "fixes steps-per-call at K=8; rejected with --sharded-overlap or "
-     "a steps pin, or when the per-chip slab exceeds VMEM windows"),
-    ("sharded mega x 2-D mesh", "ok",
-     "column-tiled windows required (auto); shards narrower than 128 "
-     "columns rejected"),
-    ("bf16 storage x resident/pack/fold", "rejected",
-     "bf16 rides the mega/windowed engines only"),
+    ("naive/regular/fused/conv x any boundary x any stencil", "ok",
+     "one device; fused (one executable per batch of steps) is the "
+     "default there"),
+    ("fused runtime_weights x any boundary", "ok",
+     "weights and rates are traced operands: parameter changes do not "
+     "recompile"),
+    ("sharded x 1-D/2-D mesh x any boundary x any stencil", "ok",
+     "ppermute halo exchange every K steps; the mesh follows the domain "
+     "geometry unless --sharded-mesh-cols pins it"),
+    ("sharded x shards shallower than K on a split axis", "rejected",
+     "one neighbour must supply the whole K-deep halo"),
+    ("sharded x fewer than 1 device or mesh column", "rejected",
+     "omit the flag for all devices / automatic factorization"),
 )
 
 
@@ -71,8 +42,8 @@ def render(fmt: str = "markdown") -> str:
             lines.append(f"| {combo} | {status} | {note} |")
         return "\n".join(lines)
     width = max(len(c) for c, _, _ in MATRIX)
-    lines = ["kernel-engine support matrix (pinning a rejected combination "
-             "raises UnsupportedConfigError):"]
+    lines = ["backend support matrix (a rejected combination raises "
+             "UnsupportedConfigError):"]
     for combo, status, note in MATRIX:
         lines.append(f"  {combo:<{width}}  [{status}] {note}")
     return "\n".join(lines)

@@ -1,96 +1,56 @@
-"""Persistent caches.
+"""Persistent compilation cache.
 
 Analog of the reference's ``PersistentPipelineCache`` — compiled GPU
-pipelines cached at ``~/.cache/grayscott/gpu_pipelines.bin`` with atomic
-rename (compute/shared/src/gpu/context/cache.rs:23-101). Here:
+pipelines cached on disk (compute/shared/src/gpu/context/cache.rs:23-101).
+Here XLA's persistent compilation cache takes that role: a later process
+loads the compiled step instead of compiling it again.
 
-- the XLA persistent compilation cache (jax-native) takes the role of the
-  pipeline cache: first compiles of the Pallas kernels take tens of
-  seconds, subsequent processes hit the disk cache;
-- autotuning results (best kernel block size per domain/platform) are
-  persisted as JSON with the same atomic-rename discipline.
+Where the cache lives:
+
+- ``JAX_COMPILATION_CACHE_DIR``, when set: JAX reads it by itself, and
+  this module sets no other directory;
+- otherwise the fixed ``.jax_cache/`` directory inside the checkout
+  (listed in ``.gitignore``). The path is part of the cache's key, so it
+  must not move between runs.
 """
 
 from __future__ import annotations
 
-import json
 import os
-import tempfile
 
-CACHE_DIR = os.environ.get(
-    "GRAYSCOTT_CACHE_DIR",
-    os.path.join(os.path.expanduser("~"), ".cache", "grayscott_tpu"),
+#: The cache directory used when ``JAX_COMPILATION_CACHE_DIR`` is unset.
+CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))),
+    ".jax_cache",
 )
 
 _compilation_cache_enabled = False
 
 
-def enable_compilation_cache() -> str:
-    """Point JAX's persistent compilation cache into our cache dir.
+def compilation_cache_dir() -> str:
+    """The directory :func:`enable_compilation_cache` uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or CHECKOUT_CACHE_DIR
 
-    ``GRAYSCOTT_NO_PERSISTENT_CACHE=1`` makes this a no-op (the path is
-    still returned). The CPU test suite sets it (tests/conftest.py):
-    once a CLI test enables the cache, every LATER compile in the
-    process gets serialized into it — including interpret-mode Pallas
-    executables whose host-callback serialization segfaulted the
-    interpreter twice at the same test (jax compilation_cache
-    put_executable_and_time, observed 2026-08-21). Real CLI/bench runs
-    keep the cache: their executables are plain compiled programs.
+
+def enable_compilation_cache() -> str:
+    """Turn on JAX's persistent compilation cache; returns its directory.
+
+    Every executable is cached, however fast it compiled. The CPU test
+    suite sets ``GRAYSCOTT_NO_PERSISTENT_CACHE=1`` (tests/conftest.py),
+    which makes this a no-op that still returns the path: the suite's
+    thousands of tiny executables do not belong in the checkout's cache.
     """
     global _compilation_cache_enabled
-    path = os.path.join(CACHE_DIR, "xla_cache")
+    path = compilation_cache_dir()
     if os.environ.get("GRAYSCOTT_NO_PERSISTENT_CACHE"):
         return path
     if not _compilation_cache_enabled:
-        os.makedirs(path, exist_ok=True)
         import jax
 
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+        if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+            os.makedirs(path, exist_ok=True)
+            jax.config.update("jax_compilation_cache_dir", path)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
         _compilation_cache_enabled = True
     return path
-
-
-def _autotune_path() -> str:
-    return os.path.join(CACHE_DIR, "autotune.json")
-
-
-def load_autotune() -> dict:
-    try:
-        with open(_autotune_path()) as f:
-            return json.load(f)
-    except (OSError, ValueError):
-        return {}
-
-
-def save_autotune(entries: dict) -> None:
-    """Write-ahead-style atomic update (cache.rs:33-101 analog)."""
-    os.makedirs(CACHE_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=CACHE_DIR, suffix=".tmp")
-    try:
-        with os.fdopen(fd, "w") as f:
-            json.dump(entries, f, indent=1)
-        os.replace(tmp, _autotune_path())
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
-
-
-def autotune_key(platform: str, shape, boundary: str, stencil: str,
-                 kernel_version: int = 1, dtype: str = "float32") -> str:
-    """Cache key for one tuning configuration. ``platform`` should be
-    ``utils.device.autotune_platform()`` — the normalized device KIND
-    (``v5e``/``v4``/...) on TPU, so verdicts measured on one generation
-    never pin another — or a plain platform string off-TPU. ``dtype``
-    participates (bf16's optimum differs: halved window DMAs); f32 is
-    omitted for backward compatibility with existing stores."""
-    key = (
-        f"v{kernel_version}:{platform}:{shape[0]}x{shape[1]}:"
-        f"{boundary}:{stencil}"
-    )
-    if dtype not in ("float32", "f32", None):
-        key += f":{dtype}"
-    return key

@@ -1,178 +1,20 @@
-"""Per-generation device budgets: the hwloc analog.
+"""What am I running on: the device-capability report.
 
-The reference derives its cache-blocking budgets from hwloc at runtime
-(compute/block/src/default.rs:6-57) so the same binary tunes itself to
-whatever CPU it lands on. The TPU analog is this module: every tuned
-constant in the kernel-geometry layer (scoped-VMEM tiers, window budgets,
-the VMEM-resident envelope) was MEASURED on one TPU v5e, whose physical
-VMEM is 128 MiB — on a different generation those byte counts are wrong,
-either unsafely (tiers past a smaller physical VMEM are a hard Mosaic
-failure) or wastefully (a larger VMEM silently under-used). Here the v5e
-numbers become a calibrated ANCHOR, scaled by the actual generation's
-VMEM budget; autotune records and shipped verdicts are keyed on the
-device *kind* (``jax.devices()[0].device_kind``), not the platform
-string, so v5e-measured verdicts never leak onto other silicon.
-
-Budget sources, in precedence order:
-
-1. ``GRAYSCOTT_VMEM_BYTES`` — explicit user override (the part is known
-   better than this table).
-2. The per-generation table below (public per-core VMEM figures;
-   conservative where the public record is thin).
-3. A conservative 16 MiB fallback for unknown TPU kinds — geometry
-   stays safe, and the backend logs a one-time recommendation to run
-   ``--autotune`` so measurements replace the guess.
-
-``GRAYSCOTT_DEVICE_KIND`` overrides kind detection (testing hook, and a
-way to pin budgets when running under an emulated/virtual platform).
-On non-TPU platforms (CPU interpret mode, the test mesh) the anchor
-budget applies unchanged: kernels never execute on real VMEM there, and
-keeping the v5e geometry makes CPU-validated tile plans identical to
-the calibrated hardware ones.
+The analog of the reference's trace-level device-capability dump
+(compute/shared/src/gpu/context/device.rs:77-118, library.rs:10-33).
 """
 
 from __future__ import annotations
 
 import os
-import re
-
-#: The calibrated anchor: physical per-core VMEM on TPU v5e, where every
-#: shipped constant in ops/pallas_stencil.py + ops/megakernel.py was
-#: measured (scoped tiers validated up to 120 MiB in rounds 1-2).
-ANCHOR_VMEM_BYTES = 128 << 20
-
-#: Public per-core VMEM figures by normalized device kind. v5e/v5p/v6e
-#: are 128 MiB-class parts; v4 pairs 32 MiB VMEM with a 128 MiB CMEM
-#: that Pallas does not manage, so only the VMEM counts; v2/v3 are
-#: 16 MiB-class. Conservative where sources disagree.
-KNOWN_VMEM_BYTES: dict[str, int] = {
-    "v5e": 128 << 20,
-    "v5p": 128 << 20,
-    "v6e": 128 << 20,
-    "v4": 32 << 20,
-    "v3": 16 << 20,
-    "v2": 16 << 20,
-}
-
-#: Kinds our shipped constants were actually measured on. Everything
-#: else gets scaled-anchor geometry plus a re-tune recommendation.
-CALIBRATED_KINDS = frozenset({"v5e"})
-
-#: Unknown-TPU fallback: small enough to be safe on any shipping part.
-CONSERVATIVE_VMEM_BYTES = 16 << 20
-
-_raw_kind_cache: str | None = None
-
-
-def normalize_kind(raw: str) -> str:
-    """Normalize a ``device_kind`` string to a short generation token:
-    'TPU v5 lite' -> 'v5e', 'TPU v5e' -> 'v5e', 'TPU v5p' -> 'v5p',
-    'TPU v4' -> 'v4'. Unrecognized strings pass through lower-cased and
-    dash-joined so they still form stable cache keys."""
-    s = raw.strip().lower()
-    m = re.search(r"v(\d+)", s)
-    if not m:
-        return re.sub(r"\s+", "-", s) or "unknown"
-    gen = m.group(1)
-    if "lite" in s or f"v{gen}e" in s:
-        return f"v{gen}e"
-    if f"v{gen}p" in s:
-        return f"v{gen}p"
-    return f"v{gen}"
-
-
-def _raw_kind() -> str:
-    """Platform or device-kind of device 0, cached (stable per process:
-    JAX pins the backend on first use)."""
-    global _raw_kind_cache
-    if _raw_kind_cache is None:
-        import jax
-
-        d = jax.devices()[0]
-        _raw_kind_cache = d.device_kind if d.platform == "tpu" else d.platform
-    return _raw_kind_cache
-
-
-def device_kind() -> str:
-    """Normalized device kind for budget and cache-key purposes:
-    'v5e'/'v4'/... on TPU, the platform name ('cpu') otherwise.
-    ``GRAYSCOTT_DEVICE_KIND`` overrides (read per call so tests can
-    simulate foreign generations without re-importing)."""
-    override = os.environ.get("GRAYSCOTT_DEVICE_KIND")
-    if override:
-        return normalize_kind(override)
-    raw = _raw_kind()
-    return raw if raw in ("cpu", "gpu") else normalize_kind(raw)
-
-
-def autotune_platform() -> str:
-    """The string autotune records and shipped verdicts key on. Device
-    kind, not platform: a v5e-measured verdict must not apply on v3/v4
-    silicon (their VMEM geometry differs 8x/4x)."""
-    return device_kind()
-
-
-def vmem_bytes() -> int:
-    """Physical per-core VMEM budget for the current device."""
-    override = os.environ.get("GRAYSCOTT_VMEM_BYTES")
-    if override:
-        return int(override)
-    kind = device_kind()
-    if kind in KNOWN_VMEM_BYTES:
-        return KNOWN_VMEM_BYTES[kind]
-    if kind in ("cpu", "gpu"):
-        # interpret / virtual-mesh runs: no real VMEM, keep the anchor
-        # geometry so CPU-validated tile plans match calibrated hardware
-        return ANCHOR_VMEM_BYTES
-    return CONSERVATIVE_VMEM_BYTES
-
-
-def vmem_scale() -> float:
-    """Budget relative to the v5e anchor (1.0 on v5e/CPU)."""
-    return vmem_bytes() / ANCHOR_VMEM_BYTES
-
-
-def scaled(anchor_bytes: int) -> int:
-    """Scale a v5e-measured byte budget to the current device,
-    quantized to 1 MiB (so derived tile plans stay stable across
-    float noise in the ratio)."""
-    s = vmem_scale()
-    if s == 1.0:
-        return anchor_bytes
-    return max(1 << 20, int(anchor_bytes * s) >> 20 << 20)
-
-
-def vmem_tiers() -> tuple[int, ...]:
-    """Scoped-VMEM quantization tiers for Mosaic compile params. The
-    v5e-validated ladder is 64/100/120 MiB against the 128 MiB physical
-    cap; other generations get the same fractions of their own budget
-    (50% / 78% / 94%), so the top tier always leaves the ~6% physical
-    headroom the v5e measurements kept."""
-    if vmem_scale() == 1.0:
-        return (64 << 20, 100 << 20, 120 << 20)
-    return tuple(scaled(t) for t in (64 << 20, 100 << 20, 120 << 20))
-
-
-def vmem_tier_cap() -> int:
-    """The largest scoped-VMEM tier (the hard geometry ceiling)."""
-    return vmem_tiers()[-1]
-
-
-def calibrated() -> bool:
-    """Whether shipped measured constants apply to this device as-is."""
-    kind = device_kind()
-    return kind in CALIBRATED_KINDS or kind in ("cpu", "gpu")
 
 
 def capability_dump() -> str:
-    """One-shot verbose "what am I running on" report — the analog of
-    the reference's trace-level device-capability dump
-    (compute/shared/src/gpu/context/device.rs:77-118, library.rs:10-33):
-    versions, every visible device with its memory stats, the budget
-    table this generation resolves to, cache locations and the
-    configuration environment. The CLI drivers log it at DEBUG on
-    simulation construction (enable with GRAYSCOTT_LOG_LEVEL=DEBUG);
-    for a bug report, print it directly:
+    """One-shot verbose "what am I running on" report: versions, every
+    visible device with its memory stats, the compile-cache location and
+    the configuration environment. The CLI drivers log it at DEBUG on
+    simulation construction (enable with GRAYSCOTT_LOG_LEVEL=DEBUG); for
+    a bug report, print it directly:
 
         python -m grayscott_tpu.utils.device
     """
@@ -187,62 +29,25 @@ def capability_dump() -> str:
     ]
     for d in jax.devices():
         desc = (f"  device {d.id}: platform={d.platform} "
-                f"kind={getattr(d, 'device_kind', '?')!r} "
-                f"process={getattr(d, 'process_index', '?')}")
-        try:
-            stats = d.memory_stats() or {}
-        except Exception:
-            stats = {}
-        if stats:
-            in_use = stats.get("bytes_in_use")
-            limit = stats.get("bytes_limit") or stats.get(
-                "bytes_reservable_limit")
-            if in_use is not None:
-                desc += f" hbm_in_use={in_use >> 20}MiB"
-            if limit:
-                desc += f" hbm_limit={limit >> 20}MiB"
+                f"kind={d.device_kind!r} process={d.process_index}")
+        stats = d.memory_stats() or {}
+        in_use = stats.get("bytes_in_use")
+        limit = stats.get("bytes_limit")
+        if in_use is not None:
+            desc += f" mem_in_use={in_use >> 20}MiB"
+        if limit:
+            desc += f" mem_limit={limit >> 20}MiB"
         lines.append(desc)
-    kind = device_kind()
-    lines += [
-        f"normalized kind: {kind!r} (autotune key platform); "
-        f"calibrated verdicts: {calibrated()}",
-        f"VMEM budget: {vmem_bytes() >> 20} MiB "
-        f"(anchor v5e {ANCHOR_VMEM_BYTES >> 20} MiB, "
-        f"scale {vmem_scale():.3f}); "
-        f"scoped tiers MiB: {[t >> 20 for t in vmem_tiers()]}",
-    ]
     from . import cache
 
-    lines.append(f"cache dir: {cache.CACHE_DIR} "
-                 f"(autotune records: {len(cache.load_autotune())})")
+    lines.append(f"compile cache: {cache.compilation_cache_dir()}")
     env = {k: v for k, v in sorted(os.environ.items())
            if k.startswith("GRAYSCOTT_") or k in
-           ("JAX_PLATFORMS", "XLA_FLAGS", "TPU_ACCELERATOR_TYPE")}
+           ("JAX_PLATFORMS", "JAX_COMPILATION_CACHE_DIR", "XLA_FLAGS",
+            "CUDA_VISIBLE_DEVICES", "XLA_PYTHON_CLIENT_MEM_FRACTION")}
     lines.append("environment: " + (
         " ".join(f"{k}={v}" for k, v in env.items()) or "(defaults)"))
     return "\n".join(lines)
-
-
-_warned_uncalibrated = False
-
-
-def warn_uncalibrated_once() -> None:
-    """One-time per-process note that this generation has no calibrated
-    verdicts: geometry falls back to scaled-conservative heuristics and
-    ``--autotune`` will measure real winners for this part."""
-    global _warned_uncalibrated
-    if _warned_uncalibrated or calibrated():
-        return
-    _warned_uncalibrated = True
-    import logging
-
-    logging.getLogger("grayscott_tpu").warning(
-        "device kind %r has no calibrated tuning verdicts (anchor: v5e); "
-        "using conservative geometry scaled to a %d MiB VMEM budget — "
-        "pass --autotune to the CLIs (or set GRAYSCOTT_AUTOTUNE=1) "
-        "to measure and persist winners for this part",
-        device_kind(), vmem_bytes() >> 20,
-    )
 
 
 if __name__ == "__main__":  # pragma: no cover - bug-report shim

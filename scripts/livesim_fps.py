@@ -4,12 +4,11 @@ Measures the full FrameSource pipeline in-process at the reference's
 default 1080x1920 domain: device frame-steps + device->host palette-index
 transfer + tobytes (what the web index-stream path serves per frame,
 livesim/src/frames.rs:21-175 swapchain analog). Reports fps per pipeline
-depth plus a link RTT probe, so a depth verdict can be read against the
-transfer bound: at ~28 ms RTT and ~2 MB/frame the single-frame path is
-capped near 1/RTT-limited rates, while K frames in flight can overlap K
-transfers if the runtime pipelines them.
+depth plus the host's round-trip floor (a blocking 4-byte readback), so
+a depth verdict can be read against it: K frames in flight can overlap
+K device->host transfers if the runtime pipelines them.
 
-Usage (on TPU):
+Usage (on a GPU machine):
     python scripts/livesim_fps.py [--rows 1080] [--cols 1920]
         [--frames 60] [--depths 1,2,3,4] [--backend auto]
 """
@@ -57,8 +56,8 @@ def measure_depth(args, depth: int, frames: int, warm: int = 8) -> dict:
 
 
 def rtt_probe(n: int = 10) -> float:
-    """Best-of-n blocking 4-byte readback: the link's per-round-trip
-    floor (scripts/rtt_probe.py's sync_ready leg)."""
+    """Best-of-n blocking 4-byte readback: the per-round-trip floor of
+    dispatch plus device->host copy."""
     import jax.numpy as jnp
 
     x = jnp.float32(1.0) + jnp.float32(2.0)
@@ -81,7 +80,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     rtt = rtt_probe()
-    print(f"link RTT floor (4-byte blocking readback): {rtt * 1e3:.1f} ms",
+    print(f"round-trip floor (4-byte blocking readback): {rtt * 1e3:.3f} ms",
           flush=True)
     frame_mb = args.rows * args.cols / 1e6
     print(f"frame payload: {frame_mb:.2f} MB (palette indices, 1 B/px)",

@@ -26,12 +26,12 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=1000)
     parser.add_argument("--snapshot-every", type=int, default=100)
-    parser.add_argument("--backends", default="fused,pallas")
+    parser.add_argument("--backends", default="naive,regular,fused,conv")
     parser.add_argument("--boundary", default="naive")
     parser.add_argument("--shape", default="256x384")
     parser.add_argument("--stencil", default="oono-puri",
                         help="Laplacian stencil; '5points' exercises the "
-                        "kernels' DIRECT (non-separable) path")
+                        "DIRECT (non-separable) path")
     parser.add_argument("-o", "--output", default=None)
     args = parser.parse_args(argv)
 

@@ -62,6 +62,25 @@ def test_many_steps_from_standard_init(params, backend):
     np.testing.assert_allclose(gv, ov, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("stencil", list(STENCILS))
+@pytest.mark.parametrize("backend", JNP_BACKENDS)
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+def test_all_stencils_many_steps(boundary, backend, stencil):
+    """50 steps from the standard init box for every stencil under both
+    boundaries: the multi-step budget of test_many_steps_from_standard_init
+    across the whole stencil x boundary matrix."""
+    params = Parameters.with_stencil(stencil)
+    shape = (32, 40)
+    u0, v0 = initial_uv(shape)
+    ou, ov = oracle.run(u0, v0, params, 50, boundary)
+    sim = make_sim(backend, params, boundary)
+    species = sim.make_species(shape)
+    sim.perform_steps(species, 50)
+    gu, gv = species.uv_host()
+    np.testing.assert_allclose(gu, ou, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(gv, ov, rtol=0, atol=1e-5)
+
+
 def test_naive_backend_near_bitwise(rng, params):
     """The naive jnp backend reproduces the oracle to 1 ulp (XLA may
     contract multiply-adds into FMAs; term order is otherwise identical)."""

@@ -47,13 +47,13 @@ def test_report_markdown_with_baseline(tmp_path):
     from grayscott_tpu.bench import report
 
     cur = [
-        {"backend": "pallas", "workload": "compute", "shape": [64, 128],
+        {"backend": "sharded", "workload": "compute", "shape": [64, 128],
          "steps": 32, "boundary": "zero", "gcells_per_sec": 50.0},
-        {"backend": "pallas", "workload": "compute", "shape": [128, 256],
+        {"backend": "sharded", "workload": "compute", "shape": [128, 256],
          "steps": 32, "boundary": "zero", "gcells_per_sec": 60.0},
     ]
     base = [
-        {"backend": "pallas", "workload": "compute", "shape": [64, 128],
+        {"backend": "sharded", "workload": "compute", "shape": [64, 128],
          "steps": 32, "boundary": "zero", "gcells_per_sec": 40.0},
         {"backend": "fused", "workload": "compute", "shape": [64, 128],
          "steps": 32, "boundary": "zero", "gcells_per_sec": 10.0},
@@ -86,12 +86,7 @@ def test_report_cli(tmp_path, capsys):
     assert "| fused |" in out and "1.25" in out
 
 
-def test_bench_headline_json_contract(monkeypatch, capsys):
-    """bench.py emits ONE JSON line whose per-methodology keys never
-    conflate definitions: value == value_steady_state (the r4 headline
-    definition), value_single_run is separate, and the naive-boundary
-    second tracked row rides along so a regression on the CLI-default
-    path moves a recorded number."""
+def _load_bench():
     import importlib.util
     import pathlib
 
@@ -100,35 +95,60 @@ def test_bench_headline_json_contract(monkeypatch, capsys):
         pathlib.Path(__file__).resolve().parent.parent / "bench.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
 
-    def fake_measure(r=4096, c=4096, steps=1000, backend=None,
-                     boundary="zero"):
+
+def test_bench_headline_json_contract(monkeypatch, capsys):
+    """bench.py emits ONE JSON line whose per-methodology keys never
+    conflate definitions: value == value_steady_state, value_single_run
+    is separate, the naive-boundary second row rides along, and the
+    device and card it ran on are named; vs_baseline divides by the
+    card's roofline from the peak table."""
+    from grayscott_tpu.bench import roofline
+
+    mod = _load_bench()
+
+    def fake_measure(r=4096, c=4096, steps=1000, boundary="zero"):
         steady = 80.0 if boundary == "naive" else 90.0
-        return (backend or "pallas"), steady, steady - 10.0, 5
+        return "fused", steady, steady - 10.0, 5
 
     monkeypatch.setattr(mod, "measure", fake_measure)
-    monkeypatch.setattr("grayscott_tpu.utils.runtime.wait_for_device",
-                        lambda *a, **k: None)
+    # the CPU test platform stands in for a card with the H100's peak
+    monkeypatch.setitem(roofline.HBM_BYTES_PER_S, "cpu", 3.35e12)
+    monkeypatch.setattr(roofline, "card_line",
+                        lambda: "NVIDIA H100 80GB HBM3, 700.00 W")
     assert mod.main() == 0
     out = capsys.readouterr().out.strip().splitlines()
-    assert len(out) == 1  # the driver contract: ONE JSON line on stdout
+    assert len(out) == 1  # ONE JSON line on stdout
     rec = json.loads(out[0])
     assert rec["value"] == rec["value_steady_state"] == 90.0
     assert rec["value_single_run"] == 80.0
     assert rec["naive_steady_state"] == 80.0
     assert rec["naive_single_run"] == 70.0
     assert rec["unit"] == "Gcell/s"
+    assert rec["vs_baseline"] == 90.0 / 209.375
     assert 0 < rec["naive_vs_baseline"] < rec["vs_baseline"]
+    assert rec["device"]["platform"] == "cpu"
+    assert rec["card"] == "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
-def test_sweep_engine_kwarg_plumbed_and_filtered(capsys):
-    # pallas accepts the engine pin; engine-less backends ignore it
-    # loudly instead of crashing on an unexpected kwarg
+def test_bench_refuses_device_without_published_peak():
+    """On a device missing from the peak table bench.py raises before it
+    measures anything: no rate is ever divided by a guessed peak."""
+    import pytest
+
+    mod = _load_bench()
+    with pytest.raises(ValueError, match="no published memory bandwidth"):
+        mod.main()
+
+
+def test_sweep_backend_kwargs_plumbed():
+    """backend_kwargs reach the backend and label every result."""
     results = sweep(
-        ["fused", "pallas"], domains=[(16, 16)], step_counts=[2],
+        ["sharded"], domains=[(16, 16)], step_counts=[3],
         workloads=("compute",), reps=1, verbose=False,
-        backend_kwargs={"engine": "windowed"},
+        backend_kwargs={"steps_per_exchange": 2, "n_devices": 2},
     )
-    assert len(results) == 2
-    assert "ignoring engine" in capsys.readouterr().out
-    assert results[1].extra.get("engine") == "windowed"
+    assert len(results) == 1
+    assert results[0].extra["steps_per_exchange"] == 2
+    assert results[0].gcells_per_sec > 0

@@ -103,12 +103,12 @@ def test_pics_zero_padding(tmp_path):
 
 
 def test_simulate_sharded_backend(tmp_path):
-    """The multi-chip backend through the real CLI on the virtual mesh."""
+    """The multi-device backend through the real CLI on the virtual mesh."""
     out = tmp_path / "s.h5"
     rc = simulate.main(
         ["-n", "1", "-r", "16", "-c", "16", "-e", "2",
          "--backend", "sharded", "--sharded-devices", "2",
-         "--pallas-block-rows", "8", "-o", str(out)]
+         "--sharded-steps-per-exchange", "2", "-o", str(out)]
     )
     assert rc == 0
     from grayscott_tpu.params import Parameters
@@ -171,32 +171,38 @@ def test_data_to_pics_writer_failure_raises(tmp_path, monkeypatch):
                            "--output-threads", "2"])
 
 
-def test_simulate_autotune_flag(tmp_path, monkeypatch):
-    """--autotune runs the tuner for the CLI domain before the run and
-    the simulation adopts the persisted winner."""
-    from grayscott_tpu.utils import cache as c
+def test_run_pipeline_sink_receives_every_image_in_order():
+    """The factored snapshot loop (what simulate.main and chip_smoke.py
+    drive): N batches -> N float32 images handed to the sink in order,
+    each the state after its own batch."""
+    from grayscott_tpu.backends import get_backend
+    from grayscott_tpu.params import Parameters
 
-    monkeypatch.setattr(c, "CACHE_DIR", str(tmp_path))
-    calls = {}
-    from grayscott_tpu.bench import autotune as at
+    sim = get_backend("fused")(Parameters())
+    species = sim.make_species((16, 24))
+    images = []
+    simulate.run_pipeline(sim, species, 3, 4, images.append,
+                          output_buffer=1)
+    assert len(images) == 3 and species.steps_performed == 12
+    u, v = initial_uv((16, 24))
+    for image in images:
+        u, v = oracle.run(u, v, Parameters(), 4)
+        assert image.dtype == np.float32
+        np.testing.assert_allclose(image, v, rtol=0, atol=1e-6)
 
-    real = at.autotune
 
-    def spy(params, shape, boundary, **kw):
-        calls["shape"] = shape
-        return real(params, shape, boundary,
-                    candidates=[{"block_rows": 8, "steps_per_call": 2}],
-                    **{k: v for k, v in kw.items() if k != "candidates"})
+def test_run_pipeline_reraises_sink_error():
+    from grayscott_tpu.backends import get_backend
+    from grayscott_tpu.params import Parameters
 
-    monkeypatch.setattr(at, "autotune", spy)
-    out = tmp_path / "o.h5"
-    rc = simulate.main(["-n", "2", "-r", "24", "-c", "32", "-e", "2",
-                        "--backend", "pallas", "--autotune", "-o", str(out)])
-    assert rc == 0 and calls["shape"] == (24, 32)
-    assert at.lookup(
-        __import__("grayscott_tpu.params", fromlist=["Parameters"])
-        .Parameters(), (24, 32), "naive",
-    )["block_rows"] == 8
+    sim = get_backend("fused")(Parameters())
+    species = sim.make_species((8, 8))
+
+    def sink(image):
+        raise OSError("disk full")
+
+    with pytest.raises(OSError, match="disk full"):
+        simulate.run_pipeline(sim, species, 5, 1, sink, output_buffer=1)
 
 
 def test_simulate_snapshot_dtype_bf16(tmp_path):

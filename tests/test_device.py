@@ -1,177 +1,49 @@
-"""Generation portability: tuned constants scale to the device's VMEM
-budget and v5e-measured verdicts never apply on foreign silicon.
-
-The reference derives its cache-blocking budgets from hwloc at runtime
-(compute/block/src/default.rs:6-57); utils/device.py is the TPU analog —
-shipped v5e measurements become a calibrated anchor scaled by the actual
-generation's VMEM, and autotune records key on the device KIND.
-"""
+"""Device facts: the capability report, and the published-peak table the
+benchmark divides by (grayscott_tpu/bench/roofline.py)."""
 
 from __future__ import annotations
 
 import pytest
 
-from grayscott_tpu.ops import megakernel as mk
-from grayscott_tpu.ops import pallas_stencil as ps
-from grayscott_tpu.params import Parameters
+from grayscott_tpu.bench import roofline
 from grayscott_tpu.utils import device
 
 
-@pytest.fixture
-def params():
-    return Parameters()
+@pytest.mark.parametrize("kind,bandwidth", [
+    ("NVIDIA H100 80GB HBM3", 3.35e12),
+    ("NVIDIA H100 PCIe", 2.0e12),
+])
+def test_peak_table_known_kinds(kind, bandwidth):
+    assert roofline.hbm_peak(kind) == bandwidth
+    assert roofline.roofline_gcells(kind) == pytest.approx(
+        bandwidth / 16 / 1e9)
 
 
-def test_normalize_kind():
-    assert device.normalize_kind("TPU v5 lite") == "v5e"
-    assert device.normalize_kind("TPU v5e") == "v5e"
-    assert device.normalize_kind("TPU v5p") == "v5p"
-    assert device.normalize_kind("TPU v4") == "v4"
-    assert device.normalize_kind("TPU v3") == "v3"
-    assert device.normalize_kind("TPU v6 lite") == "v6e"
-    assert device.normalize_kind("TPU v6e") == "v6e"
-    # unknown strings still form stable cache keys
-    assert device.normalize_kind("Next Gen Part") == "next-gen-part"
+def test_h100_sxm_roofline_is_about_209_gcells():
+    assert roofline.roofline_gcells("NVIDIA H100 80GB HBM3") == \
+        pytest.approx(209.375)
 
 
-def test_kind_env_override(monkeypatch):
-    monkeypatch.setenv("GRAYSCOTT_DEVICE_KIND", "TPU v3")
-    assert device.device_kind() == "v3"
-    assert device.autotune_platform() == "v3"
-    assert device.vmem_bytes() == 16 << 20
-    assert device.vmem_scale() == pytest.approx(1 / 8)
-    assert not device.calibrated()
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", ""])
+def test_peak_table_refuses_unknown_kind(kind):
+    """A device missing from the table is an error, never a default."""
+    with pytest.raises(ValueError, match="no published memory bandwidth"):
+        roofline.hbm_peak(kind)
+    with pytest.raises(ValueError):
+        roofline.roofline_gcells(kind)
 
 
-def test_vmem_bytes_env_override(monkeypatch):
-    monkeypatch.setenv("GRAYSCOTT_DEVICE_KIND", "TPU v3")
-    monkeypatch.setenv("GRAYSCOTT_VMEM_BYTES", str(64 << 20))
-    assert device.vmem_bytes() == 64 << 20
-    assert device.vmem_scale() == pytest.approx(0.5)
-
-
-def test_unknown_tpu_kind_is_conservative(monkeypatch):
-    monkeypatch.setenv("GRAYSCOTT_DEVICE_KIND", "TPU v9 hyper")
-    assert device.device_kind() == "v9"
-    assert device.vmem_bytes() == device.CONSERVATIVE_VMEM_BYTES
-    assert not device.calibrated()
-
-
-def test_cpu_uses_anchor_budget():
-    # CPU interpret runs keep v5e geometry so CPU-validated tile plans
-    # match calibrated hardware (conftest pins the cpu platform)
-    assert device.device_kind() == "cpu"
-    assert device.vmem_bytes() == device.ANCHOR_VMEM_BYTES
-    assert device.vmem_scale() == 1.0
-    assert device.calibrated()
-    assert device.vmem_tiers() == (64 << 20, 100 << 20, 120 << 20)
-
-
-def test_tiers_scale_with_budget(monkeypatch):
-    monkeypatch.setenv("GRAYSCOTT_DEVICE_KIND", "TPU v4")  # 32 MiB part
-    tiers = device.vmem_tiers()
-    assert tiers == (16 << 20, 25 << 20, 30 << 20)
-    assert device.vmem_tier_cap() == 30 << 20
-    # mega tier quantization follows the device ladder
-    assert mk.mega_vmem_limit(64, 8, 1024) in tiers
-
-
-def test_shipped_verdicts_do_not_apply_on_foreign_kind(
-    monkeypatch, tmp_path, params
-):
-    """THE portability contract: on a non-v5e generation the shipped
-    v5e-measured verdicts are invisible — lookup misses and the backend
-    falls back to VMEM-scaled heuristics."""
-    from grayscott_tpu.bench import autotune
-    from grayscott_tpu.utils import cache as c
-
-    monkeypatch.setattr(c, "CACHE_DIR", str(tmp_path))  # empty store
-    monkeypatch.setenv("GRAYSCOTT_DEVICE_KIND", "TPU v5 lite")
-    for shape, boundary in (((4096, 4096), "zero"), ((2048, 2048), "zero"),
-                            ((4096, 4096), "naive")):
-        assert autotune.lookup(params, shape, boundary) is not None
-    monkeypatch.setenv("GRAYSCOTT_DEVICE_KIND", "TPU v3")
-    for shape, boundary in (((4096, 4096), "zero"), ((2048, 2048), "zero"),
-                            ((4096, 4096), "naive")):
-        assert autotune.lookup(params, shape, boundary) is None
-
-
-def test_legacy_tpu_keyed_local_records_apply_only_on_v5e(
-    monkeypatch, tmp_path, params
-):
-    """Rounds 1-2 keyed local records on the platform string 'tpu'; all
-    were measured on v5e, so they keep working there and ONLY there."""
-    from grayscott_tpu.bench import autotune
-    from grayscott_tpu.utils import cache as c
-
-    monkeypatch.setattr(c, "CACHE_DIR", str(tmp_path))
-    key = c.autotune_key("tpu", (333, 444), "zero", params.stencil_name(),
-                         ps.KERNEL_VERSION)
-    c.save_autotune({key: {"engine": "mega", "block_rows": None,
-                           "steps_per_call": 16, "fold": 1, "pack": False,
-                           "gcells_per_sec": 42.0, "source": "legacy"}})
-    monkeypatch.setenv("GRAYSCOTT_DEVICE_KIND", "TPU v5 lite")
-    rec = autotune.lookup(params, (333, 444), "zero")
-    assert rec is not None and rec["source"] == "legacy"
-    monkeypatch.setenv("GRAYSCOTT_DEVICE_KIND", "TPU v4")
-    assert autotune.lookup(params, (333, 444), "zero") is None
-
-
-def test_geometry_shrinks_with_budget(monkeypatch):
-    """Window geometry heuristics derive from the scaled budget: a
-    16 MiB-class part gets smaller row tiles and earlier column tiling
-    than the 128 MiB anchor, and every chosen geometry still fits its
-    own budget estimate."""
-    tr_anchor = ps.choose_block_rows(4096, 4096)
-    tc_anchor = ps.choose_block_cols(16384)
-    monkeypatch.setenv("GRAYSCOTT_DEVICE_KIND", "TPU v3")
-    tr_small = ps.choose_block_rows(4096, 4096)
-    assert tr_small < tr_anchor
-    # a width that is full-width on the anchor tiles on the small part
-    assert ps.choose_block_cols(16384) is not None
-    assert tc_anchor is None or ps.choose_block_cols(16384) <= tc_anchor
-    # mega geometry stays self-consistent under the scaled tiers
-    tr, tc = mk.choose_mega_geometry(4096, 4096)
-    est = mk._mega_vmem_est(tr, mk.MEGA_STEPS, 4096, 2,
-                            tc=tc, chalo=ps.COL_HALO if tc else 0)
-    assert est <= device.vmem_tier_cap()
-    assert mk.mega_vmem_limit(tr, mk.MEGA_STEPS, 4096) <= \
-        device.vmem_tier_cap()
-
-
-def test_resident_envelope_scales(monkeypatch):
-    # the 1080x1920 reference default fits the anchor's envelope...
-    assert ps.resident_ok((1080, 1920))
-    # ...but no 16 MiB-class part can hold it (8.9 MB state vs a
-    # scaled ~0.8 MB envelope)
-    monkeypatch.setenv("GRAYSCOTT_DEVICE_KIND", "TPU v3")
-    assert not ps.resident_ok((1080, 1920))
-    assert ps.resident_ok((64, 128))
-
-
-def test_uncalibrated_warning_fires_once(monkeypatch, caplog):
-    import logging
-
-    monkeypatch.setenv("GRAYSCOTT_DEVICE_KIND", "TPU v9 hyper")
-    monkeypatch.setattr(device, "_warned_uncalibrated", False)
-    with caplog.at_level(logging.WARNING, logger="grayscott_tpu"):
-        device.warn_uncalibrated_once()
-        device.warn_uncalibrated_once()
-    hits = [r for r in caplog.records if "autotune" in r.getMessage()]
-    assert len(hits) == 1
-    # calibrated kinds stay silent
-    monkeypatch.setenv("GRAYSCOTT_DEVICE_KIND", "TPU v5 lite")
-    monkeypatch.setattr(device, "_warned_uncalibrated", False)
-    with caplog.at_level(logging.WARNING, logger="grayscott_tpu"):
-        device.warn_uncalibrated_once()
-    assert len([r for r in caplog.records
-                if "autotune" in r.getMessage()]) == 1
+def test_card_line_has_no_fallback(monkeypatch, tmp_path):
+    """Without nvidia-smi there is no card to name: the query raises."""
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(FileNotFoundError):
+        roofline.card_line()
 
 
 def test_capability_dump_contents(monkeypatch):
     """The one-shot capability report (device.rs:77-118 analog) names
-    the versions, every device, the resolved budget table, the cache
-    location and the GRAYSCOTT_* environment."""
+    the versions, every device with its kind, the compile-cache location
+    and the GRAYSCOTT_* environment."""
     import jax
 
     monkeypatch.setenv("GRAYSCOTT_DEMO_FLAG", "1")
@@ -179,9 +51,8 @@ def test_capability_dump_contents(monkeypatch):
     assert f"jax {jax.__version__}" in out
     assert f"{jax.device_count()} device(s)" in out
     assert "device 0:" in out
-    assert f"normalized kind: {device.device_kind()!r}" in out
-    assert f"VMEM budget: {device.vmem_bytes() >> 20} MiB" in out
-    assert "cache dir:" in out
+    assert f"kind={jax.devices()[0].device_kind!r}" in out
+    assert "compile cache:" in out
     assert "GRAYSCOTT_DEMO_FLAG=1" in out
 
 

@@ -38,7 +38,7 @@ from grayscott_tpu.params import Parameters
 
 shape = (32, 24)
 sim = ShardedSimulation(
-    Parameters(), boundary="naive", steps_per_call=4, block_rows=8,
+    Parameters(), boundary="naive", steps_per_exchange=4,
 )
 species = sim.make_species(shape)
 sim.perform_steps(species, 9)

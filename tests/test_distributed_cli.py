@@ -40,8 +40,8 @@ def _env(rank: int, port: int, heartbeat: int = 10) -> dict:
         GRAYSCOTT_BACKEND="sharded",
         JAX_PLATFORMS="cpu",
         XLA_FLAGS="--xla_force_host_platform_device_count=2",
-        # isolate the XLA/autotune caches from the user's real ones
-        GRAYSCOTT_CACHE_DIR="/tmp/gs_cli_dist_cache",
+        # keep the test's compiles out of the checkout's cache
+        GRAYSCOTT_NO_PERSISTENT_CACHE="1",
     )
     env.pop("JAX_PLATFORM_NAME", None)
     return env
@@ -70,8 +70,8 @@ def _run_pair(args: list[str], timeout: int = 300):
     return procs, outputs
 
 
-BASE = ["-r", "32", "-c", "24", "-e", "4", "--pallas-block-rows", "8",
-        "--pallas-steps-per-call", "4"]
+BASE = ["-r", "32", "-c", "24", "-e", "4",
+        "--sharded-steps-per-exchange", "4"]
 
 
 def _oracle_v(steps: int) -> np.ndarray:

@@ -16,7 +16,7 @@ from conftest import random_uv
 
 def run_sharded(u, v, params, boundary, steps, n_devices, **kw):
     sim = ShardedSimulation(
-        params, boundary=boundary, n_devices=n_devices, interpret=True, **kw
+        params, boundary=boundary, n_devices=n_devices, **kw
     )
     species = sim.make_species(u.shape)
     species.storage = sim.build_storage(u, v)
@@ -34,8 +34,7 @@ def test_sharded_parity(rng, params, boundary, n):
     edge quirk at the true domain boundary."""
     u, v = random_uv(rng, (64, 16))
     ou, ov = oracle.run(u, v, params, 4, boundary)
-    gu, gv = run_sharded(u, v, params, boundary, 4, n, block_rows=8,
-                         steps_per_call=4)
+    gu, gv = run_sharded(u, v, params, boundary, 4, n, steps_per_exchange=4)
     np.testing.assert_allclose(gu, ou, rtol=0, atol=1e-6)
     np.testing.assert_allclose(gv, ov, rtol=0, atol=1e-6)
 
@@ -45,8 +44,7 @@ def test_multiple_blocks_cross_shard(rng, params):
     and the pattern crosses shard boundaries (standard init box)."""
     u0, v0 = initial_uv((32, 16))
     ou, ov = oracle.run(u0, v0, params, 9, "naive")
-    gu, gv = run_sharded(u0, v0, params, "naive", 9, 4, block_rows=8,
-                         steps_per_call=4)
+    gu, gv = run_sharded(u0, v0, params, "naive", 9, 4, steps_per_exchange=4)
     np.testing.assert_allclose(gu, ou, rtol=0, atol=1e-6)
     np.testing.assert_allclose(gv, ov, rtol=0, atol=1e-6)
 
@@ -57,8 +55,7 @@ def test_indivisible_rows_padded_internally(rng, params):
     data/src/concentration/gpu/shape.rs:141-164)."""
     u, v = random_uv(rng, (60, 16))
     ou, ov = oracle.run(u, v, params, 4, "naive")
-    gu, gv = run_sharded(u, v, params, "naive", 4, 8, block_rows=8,
-                         steps_per_call=4)
+    gu, gv = run_sharded(u, v, params, "naive", 4, 8, steps_per_exchange=4)
     np.testing.assert_allclose(gu, ou, rtol=0, atol=1e-6)
     np.testing.assert_allclose(gv, ov, rtol=0, atol=1e-6)
 
@@ -69,7 +66,7 @@ def test_odd_2d_domain(rng, params):
     ou, ov = oracle.run(u, v, params, 3, "naive")
     sim = ShardedSimulation(
         params, boundary="naive", n_devices=4, mesh_cols=2,
-        interpret=True, block_rows=8, steps_per_call=4,
+        steps_per_exchange=4,
     )
     species = sim.make_species((29, 21))
     species.storage = sim.build_storage(u, v)
@@ -89,7 +86,7 @@ def test_2d_mesh_parity(rng, params, mesh, boundary):
     ou, ov = oracle.run(u, v, params, 4, boundary)
     sim = ShardedSimulation(
         params, boundary=boundary, n_devices=nr * nc, mesh_cols=nc,
-        interpret=True, block_rows=8, steps_per_call=4,
+        steps_per_exchange=4,
     )
     species = sim.make_species(u.shape)
     species.storage = sim.build_storage(u, v)
@@ -107,7 +104,7 @@ def test_2d_mesh_multiblock(rng, params):
     ou, ov = oracle.run(u0, v0, params, 8, "naive")
     sim = ShardedSimulation(
         params, boundary="naive", n_devices=4, mesh_cols=2,
-        interpret=True, block_rows=8, steps_per_call=4,
+        steps_per_exchange=4,
     )
     species = sim.make_species((32, 32))
     sim.perform_steps(species, 8)
@@ -117,105 +114,21 @@ def test_2d_mesh_multiblock(rng, params):
 
 
 def test_deep_k_sharded(rng, params):
-    """Deep temporal blocking across shards: K=9 -> exchange depth 16."""
+    """Deep exchange: K=9 steps per exchange on 16-row shards."""
     u, v = random_uv(rng, (32, 16))
     ou, ov = oracle.run(u, v, params, 9, "naive")
-    gu, gv = run_sharded(u, v, params, "naive", 9, 2, block_rows=16,
-                         steps_per_call=9)
-    np.testing.assert_allclose(gu, ou, rtol=0, atol=1e-6)
-    np.testing.assert_allclose(gv, ov, rtol=0, atol=1e-6)
-
-
-def test_sharded_bf16(params):
-    """bf16 fast mode across the virtual mesh (exchange + kernel in bf16)."""
-    import jax.numpy as jnp
-
-    from grayscott_tpu import oracle
-    from grayscott_tpu.species import initial_uv
-
-    u0, v0 = initial_uv((32, 32))
-    ou, ov = oracle.run(u0, v0, params, 8)
-    sim = ShardedSimulation(params, boundary="naive", n_devices=4,
-                            block_rows=8, steps_per_call=4,
-                            dtype="bfloat16")
-    species = sim.make_species((32, 32))
-    species.storage = sim.build_storage(u0, v0)
-    sim.perform_steps(species, 8)
-    gu, gv = species.uv_host()
-    assert species.storage[1].dtype == jnp.bfloat16
-    np.testing.assert_allclose(gu, ou, rtol=0, atol=0.05)
-    np.testing.assert_allclose(gv, ov, rtol=0, atol=0.05)
-
-
-def test_sharded_tile_respects_compile_ceiling(params):
-    """The sharded tile heuristic must see boundary/halo so the Mosaic
-    compile-ceiling guard applies to the per-shard window. With the v3
-    kernel's 1.05 naive derate (hardware-validated: naive (256,16)@4096
-    compiles and runs, sweep r2-v3b) the naive tile may match the zero
-    tile but must still pass the guard."""
-    from grayscott_tpu.backends.sharded import ShardedSimulation
-    from grayscott_tpu.ops import pallas_stencil as ps
-
-    sim = ShardedSimulation(params, boundary="naive", n_devices=1,
-                            steps_per_call=16)
-    tr = sim._tr((4096, 4096))
-    assert ps.window_compile_ok(tr, sim.halo, 4096, "naive", 16)
-    assert tr <= 256
-
-
-@pytest.mark.parametrize("boundary", ["naive", "zero"])
-def test_overlap_mode_matches_serialized(rng, params, boundary):
-    """The interior/edge kernel split (halo-exchange overlap) computes
-    the same windows with the same kernel ops; agreement with the
-    serialized path is at f32 round-off (XLA may contract/fuse the two
-    program structures differently — measured max 7.5e-9 over 9 steps
-    in interpreter mode), and both are oracle-exact."""
-    u, v = random_uv(rng, (96, 16))  # 48 rows/shard = 6 tiles of 8
-    base_u, base_v = run_sharded(u, v, params, boundary, 9, 2,
-                                 block_rows=8, steps_per_call=4)
-    ov_u, ov_v = run_sharded(u, v, params, boundary, 9, 2,
-                             block_rows=8, steps_per_call=4, overlap=True)
-    np.testing.assert_allclose(ov_u, base_u, rtol=0, atol=1e-7)
-    np.testing.assert_allclose(ov_v, base_v, rtol=0, atol=1e-7)
-    ou, _ = oracle.run(u, v, params, 9, boundary)
-    np.testing.assert_allclose(ov_u, ou, rtol=0, atol=1e-6)
-
-
-def test_overlap_falls_back_when_too_few_tiles(rng, params):
-    """Shards of < 3 tiles cannot split; the mode silently serializes."""
-    u, v = random_uv(rng, (32, 16))  # 16 rows/shard = 2 tiles of 8
-    a = run_sharded(u, v, params, "naive", 4, 2, block_rows=8,
-                    steps_per_call=4, overlap=True)
-    b = run_sharded(u, v, params, "naive", 4, 2, block_rows=8,
-                    steps_per_call=4)
-    np.testing.assert_array_equal(a[1], b[1])
-
-
-def test_overlap_falls_back_when_tr_below_halo(rng, params):
-    """tr < halo would make the interior slab reach into the carry's
-    padding rows at both ends — rows overlap mode never refreshes (put()
-    writes interior rows only; exchange arrivals feed the edge slabs
-    directly), so they would be stale zeros standing in for neighbor
-    data. The mode must serialize instead and stay oracle-exact
-    (round-2 review regression: K=16 is the TPU default, so
-    '--sharded-overlap on --pallas-block-rows 8' hit this)."""
-    u, v = random_uv(rng, (96, 16))  # 48 rows/shard = 6 tiles of 8
-    ou, ov = oracle.run(u, v, params, 16, "naive")
-    gu, gv = run_sharded(u, v, params, "naive", 16, 2, block_rows=8,
-                         steps_per_call=16, overlap=True)  # halo=16 > tr=8
+    gu, gv = run_sharded(u, v, params, "naive", 9, 2, steps_per_exchange=9)
     np.testing.assert_allclose(gu, ou, rtol=0, atol=1e-6)
     np.testing.assert_allclose(gv, ov, rtol=0, atol=1e-6)
 
 
 def test_sharded_extract_result_matches_uv(rng, params):
-    """extract_result builds only V's fused view (no U materialization —
-    the 32768^2 ResourceExhausted hazard); it must equal extract_uv[1]
-    on both sharded engines."""
+    """extract_result builds only V's view (no U materialization); it
+    must equal extract_uv[1] on 1-D and 2-D meshes."""
     u, v = random_uv(rng, (32, 16))
-    for kw in (dict(block_rows=8, steps_per_call=4),
-               dict(engine="mega", block_rows=8)):
-        sim = ShardedSimulation(params, boundary="naive", n_devices=2,
-                                interpret=True, **kw)
+    for mesh_cols in (1, 2):
+        sim = ShardedSimulation(params, boundary="naive", n_devices=4,
+                                mesh_cols=mesh_cols, steps_per_exchange=4)
         species = sim.make_species((32, 16))
         species.storage = sim.build_storage(u, v)
         sim.perform_steps(species, 8)
@@ -224,180 +137,67 @@ def test_sharded_extract_result_matches_uv(rng, params):
         np.testing.assert_array_equal(vr, v2)
 
 
-def test_overlap_interior_kernel_independent_of_permutes(params):
-    """The enabling property, asserted on the jaxpr: at least one
-    pallas_call per block (the interior tiles) has NO transitive data
-    dependency on any ppermute output — XLA is therefore free to schedule
-    it while the exchange is in flight."""
-    import jax.numpy as jnp
-
-    from grayscott_tpu.parallel import halo as H
-
-    mesh = H.make_mesh(2, 1)
-    h = 8
-    r_loc, c = 48, 16
-    u = jnp.zeros((2, 1, h + r_loc + h, c), jnp.float32)
-    v = jnp.zeros_like(u)
-
-    def fn(u, v):
-        return H.sharded_run_blocks(
-            u, v, jnp.int32(1), None, mesh=mesh, r_total=96, steps=4,
-            tr=8, params=params, boundary="naive", halo=h, interpret=True,
-            overlap=True,
-        )
-
-    jaxpr = jax.make_jaxpr(fn)(u, v)
-
-    def subjaxprs(params):
-        for val in params.values():
-            stack = [val]
-            while stack:
-                item = stack.pop()
-                if hasattr(item, "jaxpr") and hasattr(item, "consts"):
-                    yield item.jaxpr  # ClosedJaxpr
-                elif hasattr(item, "eqns"):
-                    yield item
-                elif isinstance(item, (tuple, list)):
-                    stack.extend(item)
-
-    def check(jx, ctx_tainted=False):
-        """(found_any_pallas, found_independent_pallas, has_ppermute).
-
-        Taint propagates across equation/sub-jaxpr boundaries both ways
-        (conservatively): an eqn whose sub-jaxprs contain a ppermute
-        anywhere taints its outvars, and sub-jaxprs of a tainted eqn
-        are scanned with the taint context set — else wrapping the
-        exchange in a jit/remat/scan would make a dependent pallas_call
-        read as independent and this guard pass vacuously."""
-        tainted = set()
-        found, independent, has_pp = False, False, False
-        for eqn in jx.eqns:
-            in_tainted = ctx_tainted or any(
-                hasattr(x, "count") and x in tainted for x in eqn.invars
-            )
-            name = eqn.primitive.name
-            sub_pp = False
-            for sub in subjaxprs(eqn.params):
-                f, i, p = check(sub, in_tainted)
-                found |= f
-                independent |= i
-                sub_pp |= p
-            if name == "ppermute" or sub_pp:
-                has_pp = True
-            if name == "ppermute" or sub_pp or in_tainted:
-                tainted.update(eqn.outvars)
-            if name == "pallas_call":
-                found = True
-                if not in_tainted:
-                    independent = True
-        return found, independent, has_pp
-
-    found, independent, _ = check(jaxpr.jaxpr)
-    assert found, "no pallas_call found in the overlap jaxpr"
-    assert independent, (
-        "every pallas_call depends on a ppermute: no overlap is possible"
-    )
-
-
 def test_choose_mesh_cols_geometry():
-    """AUTO mesh factorization (VERDICT r3 #7): 2-D chosen over 1-D when
-    it decisively cuts per-chip halo exchange, 1-D kept otherwise."""
+    """AUTO mesh factorization: 2-D chosen over 1-D when it decisively
+    cuts per-device halo exchange, 1-D kept otherwise."""
     from grayscott_tpu.parallel import halo
 
-    # square 16384^2 on 8 chips: 4x2 halves the exchange volume
-    assert halo.choose_mesh_cols(8, (16384, 16384)) == 2
+    # square 16384^2 on 8 devices: 4x2 halves the exchange volume
+    assert halo.choose_mesh_cols(8, (16384, 16384), 8) == 2
     # tall-skinny: row sharding already minimal
-    assert halo.choose_mesh_cols(8, (16384, 1024)) == 1
-    # too narrow for 128-column shards: 1-D forced
-    assert halo.choose_mesh_cols(8, (4096, 200)) == 1
+    assert halo.choose_mesh_cols(8, (16384, 1024), 8) == 1
+    # narrow: column splits buy nothing over the row split
+    assert halo.choose_mesh_cols(8, (4096, 200), 8) == 1
     # single device: trivially 1
-    assert halo.choose_mesh_cols(1, (4096, 4096)) == 1
+    assert halo.choose_mesh_cols(1, (4096, 4096), 8) == 1
     # wide-flat: column-heavy factorization wins
-    assert halo.choose_mesh_cols(8, (64, 65536)) >= 4
+    assert halo.choose_mesh_cols(8, (64, 65536), 8) >= 4
 
 
 def test_auto_mesh_resolution(rng, params):
     """mesh_cols=None resolves the mesh from the domain geometry at
     first storage build; small-width domains stay 1-D."""
-    sim = ShardedSimulation(params, n_devices=4, interpret=True)
+    sim = ShardedSimulation(params, n_devices=4)
     assert sim.mesh is None
     u, v = random_uv(rng, (64, 16))
     sim.build_storage(u, v)
     assert sim.mesh is not None
-    cols = sim.mesh.devices.shape[-1] if sim.mesh.devices.ndim > 1 else 1
-    assert cols == 1  # narrow domain stays 1-D
+    assert sim.mesh.devices.shape == (4, 1)  # narrow domain stays 1-D
     # wide square domain on 4 devices -> 2x2
-    sim2 = ShardedSimulation(params, n_devices=4, interpret=True,
-                             steps_per_call=4)
+    sim2 = ShardedSimulation(params, n_devices=4, steps_per_exchange=4)
     sim2._resolve_mesh((4096, 4096))
     assert tuple(sim2.mesh.devices.shape) == (2, 2)
-    assert sim2.chalo == sim2.halo
-
-
-@pytest.mark.parametrize("boundary", ["naive", "zero"])
-def test_overlap2d_matches_oracle(rng, params, boundary):
-    """The five-slab 2-D overlap split (VERDICT r3 #7): interior carries
-    no ppermute dependency, edges consume rows/columns/corners — must
-    reproduce the oracle across shard boundaries and corners."""
-    u, v = random_uv(rng, (96, 144))  # 2x2 mesh: 48x72 per shard
-    ou, ov = oracle.run(u, v, params, 12, boundary)
-    gu, gv = run_sharded(u, v, params, boundary, 12, 4, mesh_cols=2,
-                         block_rows=8, steps_per_call=4, overlap=True)
-    np.testing.assert_allclose(gu, ou, rtol=0, atol=2e-6)
-    np.testing.assert_allclose(gv, ov, rtol=0, atol=2e-6)
-
-
-def test_overlap2d_matches_serialized(rng, params):
-    """Same windows and kernel ops as the serialized two-phase path:
-    agreement to f32 round-off."""
-    u, v = random_uv(rng, (96, 144))
-    au, av = run_sharded(u, v, params, "naive", 8, 4, mesh_cols=2,
-                         block_rows=8, steps_per_call=4, overlap=False)
-    bu, bv = run_sharded(u, v, params, "naive", 8, 4, mesh_cols=2,
-                         block_rows=8, steps_per_call=4, overlap=True)
-    np.testing.assert_allclose(au, bu, rtol=0, atol=3e-7)
-    np.testing.assert_allclose(av, bv, rtol=0, atol=3e-7)
-
-
-def test_overlap2d_falls_back_when_too_narrow(rng, params):
-    """Shards narrower than 4 column halos keep the serialized path
-    (the left/right slabs would overlap) — results stay correct."""
-    u, v = random_uv(rng, (64, 32))  # 16 cols/shard at nc=2, chalo=8
-    ou, ov = oracle.run(u, v, params, 8, "zero")
-    gu, gv = run_sharded(u, v, params, "zero", 8, 4, mesh_cols=2,
-                         block_rows=8, steps_per_call=4, overlap=True)
-    np.testing.assert_allclose(gu, ou, rtol=0, atol=2e-6)
-    np.testing.assert_allclose(gv, ov, rtol=0, atol=2e-6)
 
 
 def test_choose_mesh_cols_nonviable_1d_prefers_2d():
-    """The 1-D baseline is subject to its own min_rows viability rule:
-    8 one-row shards burn ~8x masked compute, so a viable column-wise
-    factorization must win outright (round-4 review)."""
+    """Shards must be at least K deep on every split axis: when 1-D row
+    shards are too shallow, a viable column-wise factorization wins."""
     from grayscott_tpu.parallel import halo
 
-    # 32 rows / 8 devices = 4-row shards < min_rows=8 -> 1-D not viable;
-    # the pure-column 1x8 mesh (256-col shards) is
-    assert halo.choose_mesh_cols(8, (32, 2048)) == 8
-    # nothing viable at all: stays 1 (status quo; callers pad)
-    assert halo.choose_mesh_cols(8, (8, 300)) == 1
+    # 32 rows / 8 devices = 4-row shards < K=8 -> 1-D not viable; the
+    # pure-column 1x8 mesh (256-col shards) is
+    assert halo.choose_mesh_cols(8, (32, 2048), 8) == 8
+    # nothing viable at all: 1 (the backend then rejects the domain)
+    assert halo.viable_mesh_cols((8, 40), 8, 8) == []
+    assert halo.choose_mesh_cols(8, (8, 40), 8) == 1
 
 
-def test_sharded_run_blocks_rejects_multicol_without_chalo():
-    """A multi-column mesh without the column-halo ring has NO
-    inter-shard column exchange — must error, not silently compute
-    zero-boundary physics at every shard-column seam (round-4
-    review)."""
-    import numpy as np
-
+def test_sharded_run_blocks_rejects_shallow_shards():
+    """A shard shallower than the halo cannot supply its neighbour's
+    K-deep halo: the step refuses it instead of computing wrong seams,
+    and the backend rejects the domain at storage build."""
+    from grayscott_tpu.errors import UnsupportedConfigError
     from grayscott_tpu.parallel import halo
-    from grayscott_tpu.params import Parameters
 
     mesh = halo.make_mesh(4, 2)
-    z = np.zeros((2, 2, 8 + 16 + 8, 64), np.float32)
-    with pytest.raises(ValueError, match="chalo"):
+    z = np.zeros((2, 2, 16, 4), np.float32)
+    with pytest.raises(ValueError, match="halo"):
         halo.sharded_run_blocks(
-            z, z, 1, mesh=mesh, r_total=32, steps=8, tr=8,
-            params=Parameters(), boundary="zero", chalo=0,
-            interpret=True,
+            z, z, 1, mesh=mesh, shape=(32, 8), steps=8,
+            params=Parameters(), boundary="zero",
         )
+    sim = ShardedSimulation(Parameters(), n_devices=4, mesh_cols=2,
+                            steps_per_exchange=8)
+    with pytest.raises(UnsupportedConfigError, match="halo"):
+        sim.build_storage(np.zeros((32, 8), np.float32),
+                          np.zeros((32, 8), np.float32))

@@ -1,0 +1,15 @@
+"""Sharded XLA step vs the oracle on the 8-device row mesh and the 2x2
+grid, both boundaries, every stencil, one and three steps per halo
+exchange (conftest.sharded_parity_case)."""
+
+import pytest
+
+from conftest import STENCIL_NAMES, sharded_parity_case
+
+
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("stencil", STENCIL_NAMES)
+@pytest.mark.parametrize("boundary", ["naive", "zero"])
+@pytest.mark.parametrize("mesh", [(8, 1), (2, 2)])
+def test_sharded_matches_oracle(rng, mesh, boundary, stencil, k):
+    sharded_parity_case(rng, mesh, boundary, stencil, k)

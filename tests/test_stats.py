@@ -79,7 +79,7 @@ def test_significantly_better():
     assert not stats.significantly_better(within_noise, 10.0)
 
 
-def _row(backend="pallas", shape=(64, 128), steps=32, g=50.0,
+def _row(backend="sharded", shape=(64, 128), steps=32, g=50.0,
          samples=None, **kw):
     r = {"backend": backend, "workload": "compute", "shape": list(shape),
          "steps": steps, "boundary": "zero", "gcells_per_sec": g, **kw}
@@ -135,7 +135,7 @@ def test_svg_plot_renders_series_and_bands():
     svg = report.render_svg(rows)
     assert svg.startswith("<svg")
     assert svg.count("<path d='M") >= 4  # 2 lines + 2 CI bands
-    # fixed ladder-position palette: fused=slot 4, pallas=slot 5 — the
+    # fixed ladder-position palette: fused=slot 4, sharded=slot 5 — the
     # assignment follows the entity, not the subset swept
     assert "#eda100" in svg and "#e87ba4" in svg
     assert "Gcell/s" in svg
@@ -173,88 +173,3 @@ def test_gate_cli_exit_code(tmp_path):
     rc = main(["--report", str(cur), "--baseline", str(base),
                "--gate", "-o", str(out)])
     assert rc == 0
-
-
-def test_adopt_sweep_rejects_within_noise_win(tmp_path, monkeypatch):
-    """A sweep challenger that beats the stored record on the point
-    estimate but not beyond its own CI95 must NOT be adopted."""
-    import scripts.adopt_sweep as adopt
-    from grayscott_tpu.params import Parameters
-    from grayscott_tpu.utils import cache as c
-
-    monkeypatch.setattr(c, "CACHE_DIR", str(tmp_path))
-    params = Parameters()
-    key = c.autotune_key("v5e", (4096, 4096), "zero",
-                         params.stencil_name(), ps_version())
-    c.save_autotune({key: {"engine": "mega", "block_rows": None,
-                           "steps_per_call": 16, "fold": 1, "pack": False,
-                           "gcells_per_sec": 76.0, "source": "shipped"}})
-    # challenger: +2.5% point win, but samples scatter +/-4%
-    samples = [77.9, 74.9, 79.2, 76.2, 77.0]
-    res = {"config": {"shape": [4096, 4096], "boundary": "zero",
-                      "tr": 256, "k": 16},
-           "gcells_per_sec": max(samples),
-           "samples_gcells": samples,
-           "stats": stats.summarize(samples)}
-    log = tmp_path / "sweep.log"
-    log.write_text(json.dumps(res) + "\n")
-    rc = adopt.main([str(log), "--platform", "v5e"])
-    assert rc == 0
-    rec = c.load_autotune()[key]
-    assert rec["engine"] == "mega" and rec["gcells_per_sec"] == 76.0
-    # a decisive challenger IS adopted
-    samples = [79.0, 79.1, 78.9, 79.05, 79.0]
-    res["gcells_per_sec"] = max(samples)
-    res["samples_gcells"] = samples
-    res["stats"] = stats.summarize(samples)
-    log.write_text(json.dumps(res) + "\n")
-    rc = adopt.main([str(log), "--platform", "v5e"])
-    assert rc == 0
-    rec = c.load_autotune()[key]
-    assert rec["engine"] == "windowed" and rec["block_rows"] == 256
-
-
-def ps_version():
-    from grayscott_tpu.ops import pallas_stencil as ps
-
-    return ps.KERNEL_VERSION
-
-
-def test_adopt_sweep_gates_in_matched_units(tmp_path, monkeypatch):
-    """r3 records rank on ON-CHIP device rate; sweep challengers measure
-    wall. The adoption gate must compare device-vs-device (both sides
-    carry it) or wall-vs-wall — never a wall CI against a device point,
-    which silently blocks every future adoption (round-4 review)."""
-    import scripts.adopt_sweep as adopt
-    from grayscott_tpu.params import Parameters
-    from grayscott_tpu.utils import cache as c
-
-    monkeypatch.setattr(c, "CACHE_DIR", str(tmp_path))
-    params = Parameters()
-    key = c.autotune_key("v5e", (4096, 4096), "zero",
-                         params.stencil_name(), ps_version())
-    # an r3-style device-ranked record: gcells = device, wall alongside
-    c.save_autotune({key: {"engine": "mega", "block_rows": 256,
-                           "steps_per_call": 16, "fold": 1, "pack": False,
-                           "gcells_per_sec": 92.31,
-                           "device_gcells_per_sec": 92.31,
-                           "wall_gcells_per_sec": 77.9,
-                           "source": "shipped-v5e-r3-device"}})
-    # challenger: device rate 15% above the stored 92.31; its WALL rate
-    # (80.1) sits far below the stored device number — the old gate
-    # compared 80.1 against 92.31 and kept the stale record forever
-    samples = [80.0, 79.9, 80.1, 80.0, 80.05]
-    res = {"config": {"shape": [4096, 4096], "boundary": "zero",
-                      "tr": 192, "k": 16},
-           "gcells_per_sec": max(samples),
-           "device_gcells_per_sec": 106.2,
-           "samples_gcells": samples,
-           "stats": stats.summarize(samples)}
-    log = tmp_path / "sweep.log"
-    log.write_text(json.dumps(res) + "\n")
-    rc = adopt.main([str(log), "--platform", "v5e"])
-    assert rc == 0
-    rec = c.load_autotune()[key]
-    assert rec["block_rows"] == 192  # adopted on the device comparison
-    assert rec["gcells_per_sec"] == 106.2
-    assert rec["wall_gcells_per_sec"] == 80.1

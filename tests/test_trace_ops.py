@@ -1,7 +1,6 @@
-"""The minimal xplane.pb wire-format reader (grayscott_tpu.utils.xplane,
-CLI in scripts/trace_ops.py) used for device-op attribution: exercised
-against a synthetic XSpace built with the same wire format, since no
-xplane_pb2 ships in this image."""
+"""The trace reductions (grayscott_tpu.utils.xplane, CLI in
+scripts/trace_ops.py), exercised against a synthetic XSpace built in the
+protobuf wire format, read back through jax.profiler.ProfileData."""
 
 import os
 import sys
@@ -31,22 +30,32 @@ def _field(num: int, wt: int, payload: bytes | int) -> bytes:
     return key + _varint(len(payload)) + payload
 
 
+def _event(mid: int, offset_ps: int, duration_ps: int) -> bytes:
+    # XEvent {metadata_id, offset_ps, duration_ps}
+    return _field(1, 0, mid) + _field(2, 0, offset_ps) + _field(3, 0,
+                                                              duration_ps)
+
+
 def _build_xspace() -> bytes:
-    # XEventMetadata {id: 7, name: "fused_multiply"}
-    emeta = _field(1, 0, 7) + _field(2, 2, b"fused_multiply")
-    # map entry {key: 7, value: emeta}
-    entry = _field(1, 0, 7) + _field(2, 2, emeta)
-    # two XEvents {metadata_id: 7, duration_ps: ...}
-    ev1 = _field(1, 0, 7) + _field(3, 0, 1500)
-    ev2 = _field(1, 0, 7) + _field(3, 0, 500)
-    # XLine {name: "XLA Modules", events: [ev1, ev2]}
-    line = (_field(2, 2, b"XLA Modules")
-            + _field(4, 2, ev1) + _field(4, 2, ev2))
-    # XPlane {name: "/device:TPU:0", lines: [line], event_metadata: entry}
-    plane = (_field(2, 2, b"/device:TPU:0") + _field(3, 2, line)
-             + _field(4, 2, entry))
-    # XSpace {planes: [plane, host plane]}
+    # XEventMetadata {id, name}, as map entries {key: id, value: meta}
+    entries = b""
+    for mid, name in ((7, b"fused_multiply"), (8, b"copy")):
+        meta = _field(1, 0, mid) + _field(2, 2, name)
+        entries += _field(4, 2, _field(1, 0, mid) + _field(2, 2, meta))
+    # XLA Modules line: two modules of 1.5 us and 0.5 us
+    modules = (_field(2, 2, b"XLA Modules")
+               + _field(4, 2, _event(7, 0, 1_500_000))
+               + _field(4, 2, _event(7, 3_000_000, 500_000)))
+    # a stream line with kernels at [0, 1) us, [0.5, 1.5) us (overlap)
+    # and [3, 4) us: busy 2.5 us over a 4 us window
+    stream = (_field(2, 2, b"Stream #13(compute)")
+              + _field(4, 2, _event(7, 0, 1_000_000))
+              + _field(4, 2, _event(8, 500_000, 1_000_000))
+              + _field(4, 2, _event(7, 3_000_000, 1_000_000)))
+    plane = (_field(2, 2, b"/device:GPU:0") + _field(3, 2, modules)
+             + _field(3, 2, stream) + entries)
     host = _field(2, 2, b"/host:CPU")
+    # XSpace {planes: [device plane, host plane]}
     return _field(1, 2, plane) + _field(1, 2, host)
 
 
@@ -54,15 +63,14 @@ def test_parse_synthetic_xspace(tmp_path):
     path = tmp_path / "t.xplane.pb"
     path.write_bytes(_build_xspace())
     planes = xplane.parse_xspace(str(path))
-    assert [p["name"] for p in planes] == ["/device:TPU:0", "/host:CPU"]
-    plane = planes[0]
-    assert plane["event_names"] == {7: "fused_multiply"}
-    (lname, events), = plane["lines"]
+    assert [p["name"] for p in planes] == ["/device:GPU:0", "/host:CPU"]
+    (lname, events), _ = planes[0]["lines"]
     assert lname == "XLA Modules"
-    assert [(m, d) for m, d, _ in events] == [(7, 1500), (7, 500)]
+    assert [(n, d) for n, _, d in events] == [
+        ("fused_multiply", 1500.0), ("fused_multiply", 500.0)]
     # host planes are excluded from device summaries
     assert [p["name"] for p in xplane.device_planes(str(path))] == [
-        "/device:TPU:0"
+        "/device:GPU:0"
     ]
 
 
@@ -77,25 +85,29 @@ def test_find_xplane_prefers_file_and_dir_layout(tmp_path):
         xplane.find_xplane(str(tmp_path / "nope"))
 
 
-def test_module_device_ms_and_op_summary(tmp_path):
+def test_kernel_summary_counts_stream_kernels_and_busy_union(tmp_path):
     run = tmp_path / "plugins" / "profile" / "r1"
     run.mkdir(parents=True)
     (run / "vm.xplane.pb").write_bytes(_build_xspace())
-    # 1500 + 500 ps on the XLA Modules line of the TPU plane
-    assert xplane.module_device_ms(str(tmp_path)) == (1500 + 500) / 1e9
-    ops = xplane.op_summary(str(tmp_path), line="XLA Modules")
-    assert ops == {"fused_multiply": ((1500 + 500) / 1e9, 2)}
+    s = xplane.kernel_summary(str(tmp_path))
+    assert s["kernels"] == {
+        "fused_multiply": {"ms": pytest.approx(2e-3), "count": 2},
+        "copy": {"ms": pytest.approx(1e-3), "count": 1},
+    }
+    assert s["busy_ms"] == pytest.approx(2.5e-3)
+    assert s["window_ms"] == pytest.approx(4e-3)
+    assert s["idle_share"] == pytest.approx(1 - 2.5 / 4)
 
 
 def test_device_workload_needs_device_plane():
     """The bench 'device' workload fails with a clear message on CPU
-    (host-only traces carry no XLA-module device time)."""
+    (host-only traces carry no kernel on a GPU stream line)."""
     from grayscott_tpu.backends import get_backend
     from grayscott_tpu.bench.harness import run_one
     from grayscott_tpu.params import Parameters
 
     sim = get_backend("fused")(Parameters())
-    with pytest.raises(RuntimeError, match="device-plane"):
+    with pytest.raises(RuntimeError, match="GPU stream line"):
         run_one(sim, (16, 32), 2, workload="device", reps=1)
 
 
@@ -107,4 +119,4 @@ def test_trace_ops_cli(tmp_path, capsys):
 
     assert trace_ops.main([str(tmp_path)]) == 0
     out = capsys.readouterr().out
-    assert "/device:TPU:0" in out and "fused_multiply" in out
+    assert "/device:GPU:0" in out and "fused_multiply" in out
